@@ -1,0 +1,104 @@
+"""Models carried across from the JAX package.
+
+A JAX ``GPState`` exported as numpy arrays (``x``, ``resid``, ``l``, ``n``,
+``noise``) plus the kernel and prior spec dicts of
+``friedrich_tpu/utils/serialization.py`` (``{"class": ..., "params": ...}``
+trees) becomes a port :class:`GPState`, and back. The spec reader is this
+package's own copy: the port imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .config import resolve_device
+from .kernels import KERNEL_REGISTRY
+from .kernels.base import KernelProd, KernelSum
+from .models.gp import GPState
+from .priors import PRIOR_REGISTRY
+from .utils.errors import ConfigError
+
+
+def kernel_from_spec(spec: dict):
+    """Kernel tree from its spec dict."""
+    cls = KERNEL_REGISTRY.get(spec["class"])
+    if cls is None:
+        raise ConfigError(f"unknown kernel class {spec['class']!r}")
+    if spec["class"] in ("KernelSum", "KernelProd"):
+        return cls(k1=kernel_from_spec(spec["k1"]), k2=kernel_from_spec(spec["k2"]))
+    return cls(**spec["params"])
+
+
+def kernel_spec(kernel) -> dict:
+    """Spec dict of a kernel tree (inverse of :func:`kernel_from_spec`)."""
+    name = type(kernel).__name__
+    if isinstance(kernel, (KernelSum, KernelProd)):
+        return {"class": name, "k1": kernel_spec(kernel.k1), "k2": kernel_spec(kernel.k2)}
+    return {
+        "class": name,
+        "params": {f: float(getattr(kernel, f)) for f in kernel.PARAM_FIELDS},
+    }
+
+
+def prior_from_spec(spec: dict):
+    """Prior from its spec dict."""
+    cls = PRIOR_REGISTRY.get(spec["class"])
+    if cls is None:
+        raise ConfigError(f"unknown prior class {spec['class']!r}")
+    if spec["class"] == "ConstantPrior":
+        return cls(c=spec["c"])
+    if spec["class"] == "LinearPrior":
+        return cls(
+            weights=torch.as_tensor(spec["weights"], dtype=torch.float64),
+            intercept=spec["intercept"],
+        )
+    return cls()
+
+
+def prior_spec(prior) -> dict:
+    """Spec dict of a prior (inverse of :func:`prior_from_spec`)."""
+    name = type(prior).__name__
+    spec: dict[str, Any] = {"class": name}
+    if name == "ConstantPrior":
+        spec["c"] = float(prior.c)
+    elif name == "LinearPrior":
+        spec["intercept"] = float(prior.intercept)
+        spec["weights"] = torch.as_tensor(prior.weights).cpu().tolist()
+    return spec
+
+
+def state_from_arrays(arrays: dict, kernel_spec: dict, prior_spec: dict,
+                      eps: Optional[float] = None, method: str = "gram",
+                      device=None) -> GPState:
+    """A port state from the JAX state's arrays (numpy ``x``, ``resid``,
+    ``l``, ``n``, ``noise``) and its kernel and prior specs. The dtype is
+    that of ``arrays["x"]``."""
+    device = resolve_device(device)
+    x = torch.as_tensor(np.asarray(arrays["x"]), device=device)
+    dtype = x.dtype
+
+    def t(name):
+        return torch.as_tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
+
+    return GPState(
+        x=x, resid=t("resid"), l=t("l"), n=int(arrays["n"]), noise=t("noise"),
+        kernel=kernel_from_spec(kernel_spec).to(dtype, device),
+        prior=prior_from_spec(prior_spec).to(dtype, device),
+        eps=eps, method=method,
+    )
+
+
+def state_to_arrays(state: GPState) -> tuple[dict, dict, dict]:
+    """Inverse of :func:`state_from_arrays`: ``(arrays, kernel_spec,
+    prior_spec)``."""
+    arrays = {
+        "x": state.x.cpu().numpy(),
+        "resid": state.resid.cpu().numpy(),
+        "l": state.l.cpu().numpy(),
+        "n": np.asarray(state.n, dtype=np.int32),
+        "noise": state.noise.cpu().numpy(),
+    }
+    return arrays, kernel_spec(state.kernel), prior_spec(state.prior)

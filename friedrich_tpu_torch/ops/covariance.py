@@ -1,0 +1,139 @@
+"""Covariance-matrix builders (the compute core, L2).
+
+Counterpart of ``friedrich_tpu/ops/covariance.py`` and of the reference's
+``algebra/mod.rs:41-155``.
+
+**Capacity padding.** Training buffers are padded to a capacity; the
+training covariance is the IDENTITY outside the live n x n block:
+
+    K_pad = [[K_live, 0], [0, I]]
+
+so ``chol(K_pad) = [[L_live, 0], [0, I]]`` and triangular solves against
+zero-padded right-hand sides give zero in the dead region.
+
+**Dispatch.** ``cross_covariance``, ``train_covariance_padded`` and
+``cross_covariance_train_padded`` launch the CUDA covariance-tile kernel
+(``ops/cuda/covariance_cuda.py``) for tensors on the GPU, and run their
+plain PyTorch versions (the ``plain_*`` functions below, which the kernel
+is held against) for tensors on the CPU. ``gradient_covariances_padded`` is
+plain PyTorch on every device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda import covariance_cuda
+from .distance import diag_features, pairwise_features
+
+
+def plain_cross_covariance(kernel, x1: torch.Tensor, x2: torch.Tensor,
+                           method: str = "gram") -> torch.Tensor:
+    """Plain version of :func:`cross_covariance`."""
+    feats = pairwise_features(x1, x2, kernel.needs, method=method)
+    return kernel.pointwise(feats)
+
+
+def kernel_diag(kernel, x: torch.Tensor) -> torch.Tensor:
+    """k(x_i, x_i) per row — the prior variance of each point."""
+    return kernel.pointwise(diag_features(x, kernel.needs))
+
+
+def plain_train_covariance_padded(kernel, x_pad: torch.Tensor, n: int, noise,
+                                  method: str = "gram",
+                                  rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """Plain version of :func:`train_covariance_padded`; ``rows=(r0, r1)``
+    builds only that strip of rows."""
+    cap = x_pad.shape[0]
+    r0, r1 = rows if rows is not None else (0, cap)
+    k = plain_cross_covariance(kernel, x_pad[r0:r1], x_pad, method=method)
+    # The diagonal is k(x,x) + noise^2 with EXACTLY zero distance — set it
+    # from the analytic per-row kernel diagonal rather than the pairwise
+    # tile, whose gram-identity cancellation (|x|^2+|x|^2-2x.x) otherwise
+    # puts the matmul's rounding error directly on the pivots.
+    kd = kernel_diag(kernel, x_pad) + noise * noise
+    ridx = torch.arange(r0, r1, device=x_pad.device)
+    cidx = torch.arange(cap, device=x_pad.device)
+    diag = ridx[:, None] == cidx[None, :]
+    k = torch.where(diag, kd[None, :], k)
+    live = (ridx[:, None] < n) & (cidx[None, :] < n)
+    return torch.where(live, k, diag.to(k.dtype))
+
+
+def plain_cross_covariance_train_padded(kernel, x_pad: torch.Tensor, n: int,
+                                        xq: torch.Tensor,
+                                        method: str = "gram") -> torch.Tensor:
+    """Plain version of :func:`cross_covariance_train_padded`."""
+    c = plain_cross_covariance(kernel, x_pad, xq, method=method)
+    idx = torch.arange(x_pad.shape[0], device=x_pad.device)
+    return torch.where((idx < n)[:, None], c, 0.0)
+
+
+def cross_covariance(kernel, x1: torch.Tensor, x2: torch.Tensor,
+                     method: str = "gram") -> torch.Tensor:
+    """K(X1, X2): one row per row of x1, one column per row of x2.
+
+    Counterpart of ``make_covariance_matrix`` (``algebra/mod.rs:41-54``).
+    """
+    if x1.device.type == "cpu":
+        return plain_cross_covariance(kernel, x1, x2, method=method)
+    return covariance_cuda.covariance(kernel, x1, x2, x1.shape[0], method=method)
+
+
+def train_covariance_padded(kernel, x_pad: torch.Tensor, n: int, noise,
+                            method: str = "gram") -> torch.Tensor:
+    """Padded training covariance: K + noise^2 I on the live block, identity
+    on the dead block.
+
+    Counterpart of the matrix built by ``make_cholesky_cov_matrix``
+    (``algebra/mod.rs:59-79``): kernel evals plus ``noise^2`` (squared, not
+    raw noise — ``algebra/mod.rs:78``) on the diagonal.
+
+    Args:
+      x_pad: (cap, d) padded inputs (dead rows' contents are irrelevant).
+      n: live row count.
+      noise: observation-noise standard deviation.
+    """
+    if x_pad.device.type == "cpu":
+        return plain_train_covariance_padded(kernel, x_pad, n, noise, method=method)
+    return covariance_cuda.covariance(
+        kernel, x_pad, x_pad, n, noise=noise, train=True, method=method
+    )
+
+
+def cross_covariance_train_padded(kernel, x_pad: torch.Tensor, n: int,
+                                  xq: torch.Tensor,
+                                  method: str = "gram") -> torch.Tensor:
+    """K(X_train_pad, Xq) with dead training rows zeroed: (cap, m).
+
+    Zero rows in the dead region make padded triangular solves exact (see
+    module docstring). Used by every predict path
+    (``gaussian_process/mod.rs:234``, ``:257``, ``:297``, ``:378``).
+    """
+    if x_pad.device.type == "cpu":
+        return plain_cross_covariance_train_padded(kernel, x_pad, n, xq, method=method)
+    return covariance_cuda.covariance(kernel, x_pad, xq, n, method=method)
+
+
+def gradient_covariances_padded(kernel, x_pad: torch.Tensor, n: int,
+                                method: str = "gram") -> torch.Tensor:
+    """Stacked per-parameter covariance gradients, zero outside the live
+    block: (p, cap, cap).
+
+    Counterpart of ``make_gradient_covariance_matrices``
+    (``algebra/mod.rs:129-155``). The zero dead region means traces and
+    quadratic forms over the full buffer equal the live ones.
+    """
+    feats = pairwise_features(x_pad, x_pad, kernel.needs, method=method)
+    stacked = torch.stack(list(kernel.pointwise_grads(feats)), dim=0)
+    # Diagonal from the analytic zero-distance features, for the same
+    # reason as in train_covariance_padded: the gram tile's cancellation
+    # puts matmul rounding on the diagonal, which feeds the optimizer's
+    # trace terms tr(K^-1 dK) directly.
+    dfeats = diag_features(x_pad, kernel.needs)
+    dgrads = torch.stack(list(kernel.pointwise_grads(dfeats)), dim=0)
+    idx = torch.arange(x_pad.shape[0], device=x_pad.device)
+    diag = idx[:, None] == idx[None, :]
+    stacked = torch.where(diag[None, :, :], dgrads[:, :, None], stacked)
+    live = (idx[:, None] < n) & (idx[None, :] < n)
+    return torch.where(live[None, :, :], stacked, 0.0)

@@ -1,0 +1,151 @@
+"""Public surface of the PyTorch port: the demo against the JAX package's
+demo, the device policy, the paths not yet ported, input polymorphism and
+configuration errors."""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import friedrich_tpu.demo as jdemo
+import friedrich_tpu_torch as tft
+import friedrich_tpu_torch.kernels as tk
+import friedrich_tpu_torch.priors as tp
+from friedrich_tpu_torch import config, demo
+from friedrich_tpu_torch.models import gp as tgp
+from friedrich_tpu_torch.models import optimizer as topt
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu_in_f64():
+    config.enable_x64()
+    config.set_device("cpu")
+    yield
+    config.set_device("cpu")
+
+
+_NUM = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
+
+X = [[0.8], [1.2], [3.8], [4.2]]
+Y = [3.0, 4.0, -2.0, -2.0]
+
+
+def test_demo_prints_the_numbers_of_the_jax_demo(capsys):
+    jdemo.main()
+    jax_lines = capsys.readouterr().out.strip().splitlines()
+    port_lines = []
+    demo.main(device="cpu", out=port_lines.append)
+    assert len(port_lines) == len(jax_lines)
+    for got, want in zip(port_lines, jax_lines):
+        assert _NUM.sub("#", got) == _NUM.sub("#", want)
+        if want.startswith("sample"):
+            continue  # posterior draws: torch.Generator vs jax.random
+        np.testing.assert_allclose([float(v) for v in _NUM.findall(got)],
+                                   [float(v) for v in _NUM.findall(want)], rtol=1e-9)
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config.set_device(None)
+    with pytest.raises(tft.ConfigError, match="set_device"):
+        tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y)
+    with pytest.raises(tft.ConfigError, match="CUDA"):
+        tft.GaussianProcessBuilder(X, Y)
+    # asking for the CPU, per call or globally, works
+    gp = tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y, device="cpu")
+    assert gp.state.x.device.type == "cpu"
+    config.set_device("cpu")
+    assert tft.GaussianProcessBuilder(X, Y).train().state.x.device.type == "cpu"
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tft.GaussianProcessBuilder(X, Y).set_backend("streamed"),
+    lambda: tft.GaussianProcessBuilder(X, Y).set_backend("tiled"),
+    lambda: tft.GaussianProcessBuilder(X, Y).set_backend("hybrid"),
+    lambda: tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y, backend="streamed"),
+    lambda: tft.GaussianProcessBuilder(X, Y).set_factor_storage("bf16"),
+    lambda: tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y, storage="bf16"),
+    lambda: tft.GaussianProcessBuilder(X, Y).set_factor_precision("f32"),
+    lambda: tft.GaussianProcessBuilder(X, Y).set_panel_block(256),
+    lambda: tft.GaussianProcessBuilder(X, Y).set_fit_gradient("hutchinson"),
+    lambda: tft.GaussianProcessBuilder(X, Y).set_fit_polish(True),
+    lambda: tft.GaussianProcess.default(X, Y).fit_map(),
+    lambda: tft.GaussianProcess.default(X, Y).save("model"),
+    lambda: tft.GaussianProcess.load("model"),
+], ids=["streamed", "tiled", "hybrid", "new-streamed", "bf16", "new-bf16", "factor-precision",
+        "panel-block", "hutchinson", "polish", "fit_map", "save", "load"])
+def test_paths_not_yet_ported_raise(call):
+    with pytest.raises(tft.ConfigError, match="not yet ported to friedrich_tpu_torch"):
+        call()
+
+
+def test_auto_gradient_above_the_exact_threshold_raises():
+    cap = topt.LARGE_FIT_THRESHOLD + 1
+    big = tgp.GPState(
+        x=torch.zeros((cap, 1), dtype=torch.float64), resid=torch.zeros(cap, dtype=torch.float64),
+        l=torch.zeros((0, 0), dtype=torch.float64), n=cap, noise=torch.tensor(0.1),
+        kernel=tk.SquaredExp(), prior=tp.ZeroPrior(),
+    )
+    with pytest.raises(tft.ConfigError, match="Hutchinson.*not yet ported"):
+        topt.fit_kernel_noise(big)
+
+
+def test_auto_backend_is_dense():
+    gp = tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y, backend="auto")
+    assert gp.state.backend == "auto"
+    ref = tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y)
+    assert torch.equal(gp.state.l, ref.state.l)
+
+
+def test_input_polymorphism():
+    gp = tft.GaussianProcess.default(X, Y)
+    assert isinstance(gp.predict([1.0]), float)
+    assert isinstance(gp.predict([[1.0], [2.0]]), list)
+    out = gp.predict(np.array([[1.0], [2.0]]))
+    assert isinstance(out, np.ndarray) and out.shape == (2,)
+    out = gp.predict(torch.tensor([[1.0], [2.0]], dtype=torch.float64))
+    assert isinstance(out, torch.Tensor) and out.shape == (2,)
+    mean, var = gp.predict_in_batches(np.linspace(0, 5, 11)[:, None], batch_size=4)
+    np.testing.assert_allclose(mean.numpy(), gp.predict(np.linspace(0, 5, 11)[:, None]), rtol=1e-12)
+    assert var.shape == (11,)
+
+
+def test_configuration_errors():
+    with pytest.raises(tft.ConfigError, match="non-negative"):
+        tft.GaussianProcessBuilder(X, Y).set_noise(-1.0)
+    with pytest.raises(tft.ConfigError, match="strictly positive"):
+        tft.GaussianProcessBuilder(X, Y).set_cholesky_epsilon(0.0)
+    with pytest.raises(tft.ConfigError, match="float32 or float64"):
+        tft.GaussianProcessBuilder(X, Y).set_dtype("float16")
+    with pytest.raises(tft.ShapeError):
+        tft.GaussianProcess.default(X, Y).predict([[1.0, 2.0]])
+    with pytest.raises(tft.CholeskyError, match="cholesky_epsilon"):
+        tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.0, None, X + X, Y + Y)
+    gp = tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.0, 1e-8, X + X, Y + Y)
+    assert np.isfinite(gp.predict([1.0]))
+    with pytest.raises(ValueError):
+        with config.matmul_precision("tf32"):
+            pass
+    with config.matmul_precision("bf16"):
+        assert torch.get_float32_matmul_precision() == "medium"
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.parametrize("mode", ["f32x3", "f32"])
+def test_float32_precision_modes_never_enable_tf32(mode):
+    # "f32x3" is the JAX package's near-float32 compensated mode; torch's
+    # "high" would let float32 matmuls run in TF32, a weaker mode
+    with config.matmul_precision(mode):
+        assert torch.get_float32_matmul_precision() == "highest"
+        assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_float32_models(monkeypatch):
+    monkeypatch.setattr(config, "_x64", False)
+    gp = tft.GaussianProcess.default(X, Y)
+    assert gp.state.x.dtype == torch.float32 and gp.state.l.dtype == torch.float32
+    ref = tft.GaussianProcessBuilder(X, Y).set_dtype("float64").fit_kernel().fit_prior().train()
+    assert ref.state.x.dtype == torch.float64
+    # float32 rounding through a 100-iteration multiplicative fit
+    np.testing.assert_allclose(gp.predict([1.0]), ref.predict([1.0]), rtol=1e-4)
