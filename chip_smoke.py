@@ -19,10 +19,23 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    build and factor, a 4,096-query ``predict_in_batches``, a 512-point
    ``add_samples`` and ``sample_at`` 64 points — with the kernel's launches
    counted over that run, then the kernel held against the plain version on
-   4,096-row strips of the 50,512^2 matrix and timed at the main-path shapes.
+   4,096-row strips of the 50,512^2 matrix and timed at the main-path shapes;
+5. the streamed backend: the panel-strip kernel against its plain version at
+   ragged shapes (the nine kernels plus Sum, Prod and a composition, every
+   distance method, float32 and float64); the streamed against the dense
+   backend at capacity 50,512 with phase 4's data and fitted
+   hyperparameters, and a sweep of panel widths; the same north-star flow on
+   the streamed backend at n=100,000 (capacity 100,512), with both kernels'
+   launches counted over that run and its peak memory held below two
+   factors; then the panel-strip kernel against its plain version on three
+   panels of the final factor, and timed on the middle one beside its bound,
+   its plain version and the downdate alone as one ``torch.addmm``; last, a
+   panel-width sweep at 100,512 and a ``torch.profiler`` breakdown (device
+   time by kernel, idle share) of one streamed build+factor there.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 JSON line describing each kernel, and ``{"ok": true, "device": ...}``.
+``--n`` and ``--streamed-n`` shrink the full-width phases for a quick check.
 """
 
 from __future__ import annotations
@@ -124,7 +137,7 @@ def test_kernels():
 def phase_environment() -> None:
     import torch
 
-    from friedrich_tpu_torch.ops.cuda import covariance_cuda
+    from friedrich_tpu_torch.ops.cuda import build
 
     log("== phase 1: environment")
     log("nvidia-smi:", smi_line())
@@ -136,12 +149,22 @@ def phase_environment() -> None:
     log(f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32} "
         f"(float32 matmul precision {torch.get_float32_matmul_precision()!r})")
     t0 = time.perf_counter()
-    path, report = covariance_cuda.build()
+    path, report = build.build()
     build_s = time.perf_counter() - t0
-    registers = re.findall(r"Used (\d+) registers", report)
+    per_kernel: dict = {}
+    entry = None
+    for line in report.splitlines():  # each entry function, then its "Used N registers"
+        m = re.search(r"Compiling entry function .*?(cov_kernel|panel_strip_kernel)I([fd])Li(\d)", line)
+        if m:
+            entry = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            name, dtype, method = entry
+            per_kernel[f"{name}<{'float' if dtype == 'f' else 'double'},{method}>"] = int(m.group(1))
+            entry = None
     spills = sorted({int(s) for s in re.findall(r"(\d+) bytes spill stores", report)})
-    log(f"kernel build: {build_s} s -> {path.name}; ptxas registers per instantiation "
-        f"{registers}, spill stores (bytes) {spills}")
+    log(f"kernel build (every csrc/*.cu, one nvcc each, in parallel): {build_s} s -> {path.name}; "
+        f"ptxas registers per instantiation {per_kernel}, spill stores (bytes) {spills}")
 
 
 def phase_kernel_vs_plain() -> None:
@@ -262,7 +285,23 @@ def bound_ms(m1: int, m2: int, d: int, itemsize: int, flops_per_s: float) -> tup
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_full_width(n: int) -> dict:
+D, M_QUERIES, K_ADD, M_SAMPLE = 8, 4096, 512, 64
+
+
+def bench_data(n: int):
+    """``bench.py``'s data (bench.py:99-107) at ``n`` points, float32:
+    ``(x, y, queries, appended x, appended y, sample points)``."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, D)).astype(np.float32)
+    y = (np.sin(2.5 * x[:, 0]) + 0.5 * np.cos(2.0 * x[:, 1]) + rng.normal(size=n)).astype(np.float32)
+    xq = rng.normal(size=(M_QUERIES, D)).astype(np.float32)
+    x_add = rng.normal(size=(K_ADD, D)).astype(np.float32)
+    y_add = (np.sin(2.5 * x_add[:, 0]) + 0.5 * np.cos(2.0 * x_add[:, 1])).astype(np.float32)
+    x_sample = rng.normal(size=(M_SAMPLE, D)).astype(np.float32)
+    return x, y, xq, x_add, y_add, x_sample
+
+
+def phase_full_width(n: int) -> tuple[dict, tuple]:
     import torch
 
     import friedrich_tpu_torch as ft
@@ -270,15 +309,9 @@ def phase_full_width(n: int) -> dict:
     from friedrich_tpu_torch.ops.cuda import covariance_cuda
 
     log(f"== phase 4: full width, n={n}, d=8, float32, dense backend")
-    d, m, k_add, m_sample = 8, 4096, 512, 64
+    d, m, k_add, m_sample = D, M_QUERIES, K_ADD, M_SAMPLE
     cap = n + k_add
-    rng = np.random.default_rng(0)  # bench.py's data (bench.py:99-107)
-    x = rng.normal(size=(n, d)).astype(np.float32)
-    y = (np.sin(2.5 * x[:, 0]) + 0.5 * np.cos(2.0 * x[:, 1]) + rng.normal(size=n)).astype(np.float32)
-    xq = rng.normal(size=(m, d)).astype(np.float32)
-    x_add = rng.normal(size=(k_add, d)).astype(np.float32)
-    y_add = (np.sin(2.5 * x_add[:, 0]) + 0.5 * np.cos(2.0 * x_add[:, 1])).astype(np.float32)
-    x_sample = rng.normal(size=(m_sample, d)).astype(np.float32)
+    x, y, xq, x_add, y_add, x_sample = bench_data(n)
 
     # reference point: the LML of the full-data model at the heuristic start
     xt = torch.as_tensor(x, device="cuda")
@@ -345,6 +378,7 @@ def phase_full_width(n: int) -> dict:
         "var_min": float(var.min()), "mean_abs_max": float(mean.abs().max()),
     }
     log(json.dumps({"full_width_steps": steps}))
+    fitted = (gp.prior, gp.kernel, gp.noise)
     kernel, noise, n_live, x_pad = state.kernel, state.noise, state.n, state.x
     del gp, state, mean, var, draw, builder
     torch.cuda.empty_cache()
@@ -401,13 +435,354 @@ def phase_full_width(n: int) -> dict:
         "cross_ms": cross_ms,
         "cross_plain_ms": cross_plain_ms,
         "cross_bound_ms": cross_bound,
+    }, fitted
+
+
+#: Unit roundoffs: the downdate's forward-error bound is j0 * u * (|L_tail| |L_rows|^T).
+UNIT_ROUNDOFF = {"float32": 2.0**-24, "float64": 2.0**-53}
+
+
+def abs_product(a, b, chunk: int = 4096):
+    """``|a| @ |b|^T`` accumulated over column chunks, so that no copy of a
+    whole (strided) factor block is made."""
+    import torch
+
+    out = torch.zeros((a.shape[0], b.shape[0]), dtype=a.dtype, device=a.device)
+    for k0 in range(0, a.shape[1], chunk):
+        out.addmm_(a[:, k0:k0 + chunk].abs(), b[:, k0:k0 + chunk].abs().mT)
+    return out
+
+
+def strip_excess(got, want, l_full, j0: int, block: int, atol: float, rtol: float, unit: float) -> float:
+    """Largest amount by which a panel strip misses its plain version beyond
+    atol + rtol |want| + j0 u (|L_tail| |L_rows|^T); <= 0 when within."""
+    if j0 == 0:
+        return excess(got, want, atol, rtol)
+    bound = abs_product(l_full[j0:, :j0], l_full[j0:j0 + block, :j0]).mul_(j0 * unit)
+    bound.add_(want.abs(), alpha=rtol).add_(atol)
+    return float(((got - want).abs() - bound).max())
+
+
+def strip_bound_ms(rest: int, block: int, j0: int, d: int, itemsize: int) -> tuple[float, str]:
+    """Least time for one panel strip: the downdate's 2 rest B j0 operations
+    and (2d + 9) per entry for the map, over the float32 FMA rate, against
+    the prefix blocks, the inputs and the strip moved once over HBM."""
+    ops = 2 * rest * block * j0 + (2 * d + 9) * rest * block
+    nbytes = (rest * j0 + block * j0 + rest * block + (rest + block) * d) * itemsize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profile_factor(kernel, x_pad, n: int, noise) -> dict:
+    """Device time by kernel over one streamed build+factor at the default
+    panel width (``torch.profiler``), against its wall-clock time: the
+    breakdown of the build, and the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):  # the tracer's own start-up, outside the timed run
+        torch.zeros(1, device="cuda").add_(1.0)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        l_mat, ok = streamed_cholesky_factor(kernel, x_pad, n, noise)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not bool(ok):
+        fail("the profiled streamed factorization failed")
+    del l_mat
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    busy = sum(r[1] for r in kernels)
+    if busy <= 0:
+        return {"wall_s": wall, "device_time": "not measured (the profiler recorded no device time)"}
+    return {
+        "wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+        "kernels": [{"name": k[:80], "s": t, "share_of_wall": t / wall, "count": c}
+                    for k, t, c in kernels[:8]],
     }
+
+
+def phase_panel_strip_vs_plain() -> None:
+    import torch
+
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
+    from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
+
+    log("== phase 5a: panel-strip kernel against its plain version (ragged shapes)")
+    rng = np.random.default_rng(8)
+    cap, n, noise, d = 1000, 937, 0.3, 8
+    # width 384 at j0 0 and 300, the schedule (300, 500, 200) at 0, 300, 800
+    panels = ((0, 384), (300, 384), (0, 300), (300, 500), (800, 200))
+    x_np = rng.normal(size=(cap, d))
+    l_np = np.tril(rng.normal(size=(cap, cap)) * 0.1)
+    worst, bound_worst = {}, {}
+    for dtype, (atol, rtol) in ((torch.float32, (ATOL_F32, RTOL_F32)), (torch.float64, (ATOL_F64, RTOL_F64))):
+        tname = str(dtype).split(".")[-1]
+        x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
+        for j0, block in panels:
+            l_full = torch.as_tensor(l_np, dtype=dtype, device="cuda")
+            l_full[:, j0:] = 0.0  # the factored prefix only
+            for name, kern in test_kernels().items():
+                kern = kern.to(dtype, x.device)
+                for method in ("gram", "gram_bf16", "direct"):
+                    a, r = (ATOL_F32, RTOL_F32) if method == "gram_bf16" else (atol, rtol)
+                    got = panel_strip_cuda.panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, noise,
+                                                       j0, block, method)
+                    want = plain_panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, noise, j0, block,
+                                             method)
+                    torch.cuda.synchronize()
+                    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                        fail(f"panel strip {name} {method} {tname} j0={j0} B={block}: shape or non-finite")
+                    over = strip_excess(got, want, l_full, j0, block, a, r, UNIT_ROUNDOFF[tname])
+                    err = float((got - want).abs().max())
+                    if not over <= 0:
+                        fail(f"panel strip {name} {method} {tname} j0={j0} B={block}: max error {err} "
+                             f"beyond its tolerance by {over}")
+                    worst[tname] = max(worst.get(tname, 0.0), err)
+                    bound_worst[tname] = max(bound_worst.get(tname, float("-inf")), over)
+    log(json.dumps({"panel_strip_parity": {
+        "max_abs_err": worst, "max_excess_over_tolerance": bound_worst,
+        "tolerance": "atol + rtol |plain| + j0 u (|L_tail| |L_rows|^T); f32 2e-5/2e-5, f64 1e-12/0",
+        "shapes": f"cap {cap}, live n {n}, d {d}, (j0, B) in {list(panels)}",
+        "kernels": list(test_kernels()), "methods": ["gram", "gram_bf16", "direct"]}}))
+
+
+def phase_streamed_vs_dense(fitted, n: int) -> dict:
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.ops.partition import DEFAULT_PANEL_TARGET, panel_widths, pick_block
+    from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
+
+    cap = n + K_ADD
+    log(f"== phase 5b: streamed against dense at capacity {cap}, float32, phase 4's fitted model")
+    prior, kernel, noise = fitted
+    x, y, xq, *_ = bench_data(n)
+    out = {}
+    for backend in ("dense", "streamed"):
+        t0 = sync()
+        gp = ft.GaussianProcess.new(prior, kernel, noise, None, x, y, dtype="float32", capacity=cap,
+                                    backend=backend, device="cuda")
+        out[f"{backend}_build_factor_s"] = sync() - t0
+        lml = gp.log_marginal_likelihood()
+        mean, var = gp.predict_in_batches(xq, 4096)
+        out[backend] = (lml, mean, var)
+        state = gp.state
+        del gp
+        torch.cuda.empty_cache()
+    (lml_d, mean_d, var_d), (lml_s, mean_s, var_s) = out.pop("dense"), out.pop("streamed")
+    out.update({
+        "lml_dense": lml_d, "lml_streamed": lml_s, "lml_rel_diff": abs(lml_s - lml_d) / abs(lml_d),
+        "mean_max_abs_diff": float((mean_s - mean_d).abs().max()),
+        "var_max_abs_diff": float((var_s - var_d).abs().max()),
+        "default_panels": list(panel_widths(cap)), "default_target": DEFAULT_PANEL_TARGET,
+    })
+    if not out["lml_rel_diff"] <= 1e-4:
+        fail(f"streamed LML {lml_s} differs from dense {lml_d} by more than 1e-4 relative")
+    if not (out["mean_max_abs_diff"] <= 1e-3 and out["var_max_abs_diff"] <= 1e-3):
+        fail(f"streamed predictions differ from dense: mean {out['mean_max_abs_diff']}, "
+             f"variance {out['var_max_abs_diff']} (limit 1e-3)")
+    sweep = {}
+    for target in (2048, 4096, 8192):
+        width = pick_block(cap, target)
+        t0 = sync()
+        l_mat, ok = streamed_cholesky_factor(state.kernel, state.x, state.n, state.noise, block=width)
+        sweep[f"{target}->{width}"] = sync() - t0
+        if not bool(ok):
+            fail(f"streamed factorization at panel width {width} failed")
+        del l_mat
+        torch.cuda.empty_cache()
+    out["panel_sweep_s"] = sweep
+    log(json.dumps({"streamed_vs_dense": out}))
+    return out
+
+
+def phase_streamed_full_width(n: int) -> dict:
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.models.gp import resolve_backend
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda, panel_strip_cuda
+    from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
+    from friedrich_tpu_torch.ops.covariance import plain_train_covariance_block
+    from friedrich_tpu_torch.ops.partition import panel_widths, pick_block
+    from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
+
+    cap = n + K_ADD
+    log(f"== phase 5c: full width on the streamed backend, n={n}, capacity {cap}, d=8, float32")
+    x, y, xq, x_add, y_add, x_sample = bench_data(n)
+    f32 = torch.float32
+    resolved = {c: resolve_backend("auto", c, f32, torch.device("cuda")) for c in (50_512, 100_512)}
+    log(f"backend='auto' resolves to {resolved} (card memory {torch.cuda.get_device_properties(0).total_memory} B)")
+    if resolved != {50_512: "dense", 100_512: "streamed"}:
+        fail(f"backend='auto' resolves to {resolved}, expected dense at 50,512 and streamed at 100,512")
+
+    xt = torch.as_tensor(x, device="cuda")
+    yt = torch.as_tensor(y, device="cuda")
+    heur = ft.kernels.Gaussian().heuristic_fit(xt, yt)
+    t0 = sync()
+    gp0 = ft.GaussianProcess.new(ft.priors.ConstantPrior().fit(xt, yt), heur, 1.0, None, x, y,
+                                 dtype="float32", capacity=cap, backend="streamed", device="cuda")
+    t_heur_build = sync() - t0
+    lml0 = gp0.log_marginal_likelihood()
+    log(f"heuristic start: ls={float(heur.ls)} ampl={float(heur.ampl)} LML={lml0} "
+        f"(streamed build+factor {t_heur_build} s)")
+    del gp0, xt, yt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path; both kernels' launches are counted over this run only
+    covariance_cuda.LAUNCHES = 0
+    panel_strip_cuda.LAUNCHES = 0
+    t_start = sync()
+    builder = (
+        ft.GaussianProcessBuilder(x, y, device="cuda")
+        .set_noise(1.0).set_dtype("float32").set_capacity(cap).set_backend("streamed")
+        .set_fit_subsample(8192).set_fit_parameters(100, 0.05)
+        .fit_kernel().fit_prior()
+    )
+    gp = builder.train()
+    lml = gp.log_marginal_likelihood()
+    t0 = sync()
+    mean, var = gp.predict_in_batches(xq, 4096)
+    t_predict = sync() - t0
+    t0 = sync()
+    gp.add_samples(x_add, y_add)
+    t_add = sync() - t0
+    t0 = sync()
+    draw = gp.sample_at(torch.as_tensor(x_sample, device="cuda")).sample(
+        torch.Generator(device="cuda").manual_seed(0))
+    t_sample = sync() - t0
+    t_total = sync() - t_start
+    b1_launches = covariance_cuda.LAUNCHES
+    b2_launches = panel_strip_cuda.LAUNCHES
+    # ---- end of the main path
+
+    peak = torch.cuda.max_memory_allocated()
+    two_factors = 2 * cap * cap * 4
+    widths = panel_widths(cap, gp.state.block)
+    if gp.state.backend != "streamed":
+        fail(f"the model's backend is {gp.state.backend!r}, expected 'streamed'")
+    if b2_launches != len(widths):
+        fail(f"the panel-strip kernel launched {b2_launches} times, expected one per panel ({len(widths)})")
+    if b1_launches <= 0:
+        fail("the streamed main path never launched the covariance kernel")
+    if mean.shape != (M_QUERIES,) or var.shape != (M_QUERIES,) or draw.shape != (M_SAMPLE,):
+        fail(f"unexpected shapes {tuple(mean.shape)} {tuple(var.shape)} {tuple(draw.shape)}")
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+            and bool(torch.isfinite(draw).all())):
+        fail("non-finite predictions or draws")
+    if float(var.min()) < -1e-4:
+        fail(f"negative predictive variance {float(var.min())}")
+    if not lml > lml0:
+        fail(f"LML after the fit {lml} does not exceed the heuristic start's {lml0}")
+    if gp.num_samples != cap:
+        fail(f"add_samples left {gp.num_samples} samples, expected {cap}")
+    if not peak < two_factors:
+        fail(f"peak device memory {peak} B is not below two factors ({two_factors} B)")
+    t = builder.timings
+    steps = {
+        "heuristic_s": t["heuristic"], "subfit_s": t["subfit"],
+        "subfit_iterations": t["subfit_iterations"], "build_factor_s": t["build"],
+        "predict_in_batches_s": t_predict, "add_samples_s": t_add,
+        "sample_at_s": t_sample, "total_s": t_total,
+        "peak_bytes": peak, "peak_gib": peak / 2**30, "two_factors_bytes": two_factors,
+        "panels": list(widths), "panel_strip_launches": b2_launches,
+        "covariance_tile_launches": b1_launches, "lml_start": lml0, "lml_fitted": lml,
+        "ls": float(gp.kernel.ls), "ampl": float(gp.kernel.ampl), "noise": gp.noise,
+        "var_min": float(var.min()), "mean_abs_max": float(mean.abs().max()),
+    }
+    log(json.dumps({"streamed_full_width_steps": steps}))
+
+    # ---- the kernel against the plain version on three panels of the final
+    # factor (the build's prefix, with the appended rows below it)
+    state = gp.state
+    kernel, noise, n_live, x_pad, l_full = state.kernel, state.noise, state.n, state.x, state.l
+    del gp, state, mean, var, draw, builder
+    torch.cuda.empty_cache()
+    starts = np.cumsum((0,) + widths[:-1])
+    max_err = 0.0
+    for p in (0, len(widths) // 2, len(widths) - 1):
+        j0, block = int(starts[p]), widths[p]
+        args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
+        got = panel_strip_cuda.panel_strip(*args)
+        want = plain_panel_strip(*args)
+        err = float((got - want).abs().max())
+        over = strip_excess(got, want, l_full, j0, block, ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"])
+        log(f"panel {p} [{j0}, {j0 + block}): max error {err}, excess over its tolerance {over}")
+        max_err = max(max_err, err)
+        if not over <= 0:
+            fail(f"panel-strip kernel differs from the plain version on panel {p} at full width: "
+                 f"max error {err}")
+        del got, want
+        torch.cuda.empty_cache()
+
+    # ---- times on the middle panel (the widest mid-factor one)
+    p = len(widths) // 2
+    j0, block = int(starts[p]), widths[p]
+    rest = cap - j0
+    args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
+    ms = cuda_ms(lambda: panel_strip_cuda.panel_strip(*args), reps=3)
+    plain_ms = cuda_ms(lambda: plain_panel_strip(*args), reps=3)
+    k_strip = plain_train_covariance_block(kernel, x_pad[j0:], x_pad[j0:j0 + block], n_live, noise,
+                                           row0=j0, col0=j0)
+    l_tail, l_rows = l_full[j0:, :j0], l_full[j0:j0 + block, :j0]
+    library_ms = cuda_ms(lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1), reps=3)
+    del k_strip, l_tail, l_rows, args
+    bound, bound_by = strip_bound_ms(rest, block, j0, D, 4)
+    log(f"panel strip [{j0}, {j0 + block}) of {cap}, f32: {ms} ms (plain {plain_ms} ms, "
+        f"downdate alone as torch.addmm {library_ms} ms, bound {bound} ms by {bound_by}; "
+        f"{2 * rest * block * j0 / ms / 1e9} TFLOP/s of downdate)")
+
+    # ---- the panel-width sweep at full width (one factor on the card at a time)
+    del l_full
+    torch.cuda.empty_cache()
+    sweep = {}
+    for target in (2048, 4096, 8192):
+        width = pick_block(cap, target)
+        t0 = sync()
+        l_mat, ok = streamed_cholesky_factor(kernel, x_pad, n_live, noise, block=width)
+        sweep[f"{target}->{width}"] = sync() - t0
+        if not bool(ok):
+            fail(f"streamed factorization at panel width {width} failed")
+        del l_mat
+        torch.cuda.empty_cache()
+    log(json.dumps({"full_width_panel_sweep_s": sweep, "capacity": cap, "n": n_live}))
+    log(json.dumps({"full_width_factor_profile": profile_factor(kernel, x_pad, n_live, noise)}))
+    return {
+        "name": "panel_strip",
+        "route": "cuda",
+        "source": "friedrich_tpu_torch/csrc/panel_strip.cu",
+        "replaces": "friedrich_tpu/ops/pallas/panel_fused.py:102",
+        "launches": b2_launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_call": "torch.addmm(k_strip, L[j0:, :j0], L[j0:j0+B, :j0].T, alpha=-1): "
+                        "the downdate alone, without the kernel map",
+        "shape": f"panel j0={j0} B={block} of capacity {cap}, rest {rest}, d={D}, float32",
+    }
+
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--n", type=int, default=50_000,
-                        help="training points of the full-width phase (default 50,000)")
+                        help="training points of the dense full-width phase (default 50,000)")
+    parser.add_argument("--streamed-n", type=int, default=100_000,
+                        help="training points of the streamed full-width phase (default 100,000)")
     args = parser.parse_args()
 
     import torch
@@ -420,9 +795,15 @@ def main() -> int:
     phase_environment()
     phase_kernel_vs_plain()
     phase_parity()
-    entry = phase_full_width(args.n)
+    entry, fitted = phase_full_width(args.n)
+    torch.cuda.empty_cache()
+    phase_panel_strip_vs_plain()
+    phase_streamed_vs_dense(fitted, args.n)
+    del fitted
+    torch.cuda.empty_cache()
+    streamed_entry = phase_streamed_full_width(args.streamed_n)
     log(smi_line())
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": [entry, streamed_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

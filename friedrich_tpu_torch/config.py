@@ -73,6 +73,32 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+#: Share of the card's memory that two (cap, cap) matrices may take: the
+#: dense backend's K and L, or an append's old and new factor. Past it,
+#: ``backend="auto"`` picks the streamed backend and ``add_samples``
+#: appends in place (the JAX package's append rule,
+#: ``friedrich_tpu/models/api.py:56-64``).
+TWO_MATRIX_FRACTION = 0.85
+
+
+def device_memory_bytes(device: str | torch.device | None = None) -> int | None:
+    """Total memory of a CUDA device in bytes (``device`` defaults to the
+    one :func:`resolve_device` gives); None for a CPU device. Counterpart
+    of ``friedrich_tpu/config.py:device_hbm_bytes``."""
+    dev = torch.device(device) if device is not None else resolve_device()
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
+def two_matrices_fit(cap: int, itemsize: int, device) -> bool:
+    """Whether two (cap, cap) matrices of ``itemsize``-byte entries fit
+    within :data:`TWO_MATRIX_FRACTION` of the device's memory (always true
+    on the CPU)."""
+    mem = device_memory_bytes(device)
+    return mem is None or 2 * cap * cap * itemsize <= TWO_MATRIX_FRACTION * mem
+
+
 #: The JAX package's matmul precision mode names, mapped to torch's
 #: float32 matmul precision (``torch.set_float32_matmul_precision``):
 #: "medium" lets float32 matmuls run in bfloat16 and "highest" (torch's

@@ -16,12 +16,7 @@
 // value. Cross mode: rows >= n are zero. `row0` is the global index of
 // x1's first row, so a launch can build any strip of rows.
 //
-// The kernel map. The Pallas body re-traced the kernel's pointwise map for
-// every Sum/Prod tree. Here the host encodes the tree into a postfix
-// program (one opcode per leaf kernel, ADD and MUL; at most 16 nodes and
-// 32 parameters) passed by value in the launch, and every thread runs the
-// same program on its entries, so one compiled kernel serves every
-// composition without divergence.
+// The kernel map runs as a postfix program: see program.cuh.
 //
 // Bound. At the main-path shape (50,512 x 50,512 float32, d = 8) an entry
 // costs 2d = 16 FLOPs of dot product, a handful for the distance and one
@@ -35,41 +30,11 @@
 // goes to device memory. Writing only the lower triangle in train mode,
 // and wgmma/TMA for wide d, are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <type_traits>
 
-#define MAX_OPS 16
-#define MAX_PARAMS 32
-
-// Layout shared with friedrich_tpu_torch/ops/cuda/covariance_cuda.py
-// (_Program).
-struct CovProgram {
-  int n_ops;
-  int ops[MAX_OPS];
-  int offs[MAX_OPS];  // first parameter of each leaf op
-  double params[MAX_PARAMS];
-};
+#include "program.cuh"
 
 namespace {
-
-enum Op : int {
-  OP_LINEAR = 0,
-  OP_POLYNOMIAL = 1,
-  OP_SQEXP = 2,
-  OP_EXPONENTIAL = 3,
-  OP_MATERN1 = 4,
-  OP_MATERN2 = 5,
-  OP_HYPERTAN = 6,
-  OP_MULTIQUADRIC = 7,
-  OP_RATQUAD = 8,
-  OP_ADD = 9,
-  OP_MUL = 10,
-};
-
-enum Method : int { GRAM = 0, GRAM_BF16 = 1, DIRECT = 2 };
-enum Need : int { NEED_DOT = 1, NEED_SQ = 2, NEED_DIST = 4 };
 
 constexpr int BM = 64;    // rows of a block tile
 constexpr int BN = 128;   // columns of a block tile
@@ -78,92 +43,6 @@ constexpr int TY = 8;     // threads along rows
 constexpr int RM = BM / TY;  // rows per thread
 constexpr int RN = BN / TX;  // columns per thread
 constexpr int DC = 16;    // feature columns staged per pass
-
-__device__ __forceinline__ float m_exp(float v) { return expf(v); }
-__device__ __forceinline__ double m_exp(double v) { return exp(v); }
-__device__ __forceinline__ float m_pow(float a, float b) { return powf(a, b); }
-__device__ __forceinline__ double m_pow(double a, double b) { return pow(a, b); }
-__device__ __forceinline__ float m_tanh(float v) { return tanhf(v); }
-__device__ __forceinline__ double m_tanh(double v) { return tanh(v); }
-__device__ __forceinline__ float m_hypot(float a, float b) { return hypotf(a, b); }
-__device__ __forceinline__ double m_hypot(double a, double b) { return hypot(a, b); }
-__device__ __forceinline__ float m_abs(float v) { return fabsf(v); }
-__device__ __forceinline__ double m_abs(double v) { return fabs(v); }
-__device__ __forceinline__ float m_sqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double m_sqrt(double v) { return sqrt(v); }
-__device__ __forceinline__ float m_max0(float v) { return fmaxf(v, 0.0f); }
-__device__ __forceinline__ double m_max0(double v) { return fmax(v, 0.0); }
-
-template <typename T>
-__device__ __forceinline__ float to_bf16_float(T v) {
-  return __bfloat162float(__float2bfloat16(static_cast<float>(v)));
-}
-
-// Runs the postfix program on one entry's features. The formulas are those
-// of friedrich_tpu_torch/kernels/{stationary,dot}.py `pointwise`, in the
-// same order of operations. Not inlined: one copy per dtype, instead of
-// one per entry of the unrolled register tile, keeps registers and build
-// time down.
-template <typename T>
-__device__ __noinline__ T eval_program(int n_ops, const int* ops,
-                                       const int* offs, const T* prm, T dot,
-                                       T sq, T dist) {
-  const T sqrt3 = static_cast<T>(1.7320508075688772);
-  const T sqrt5 = static_cast<T>(2.23606797749979);
-  T stack[MAX_OPS];
-  int top = 0;
-  for (int i = 0; i < n_ops; ++i) {
-    const T* p = prm + offs[i];
-    T v;
-    switch (ops[i]) {
-      case OP_ADD:
-        --top;
-        stack[top - 1] = stack[top - 1] + stack[top];
-        continue;
-      case OP_MUL:
-        --top;
-        stack[top - 1] = stack[top - 1] * stack[top];
-        continue;
-      case OP_LINEAR:
-        v = dot + p[0];
-        break;
-      case OP_POLYNOMIAL:
-        v = m_pow(p[0] * dot + p[1], p[2]);
-        break;
-      case OP_SQEXP:
-        v = m_abs(p[1]) * m_exp(-sq / (T(2) * p[0] * p[0]));
-        break;
-      case OP_EXPONENTIAL:
-        v = m_abs(p[1]) * m_exp(-dist / (T(2) * p[0] * p[0]));
-        break;
-      case OP_MATERN1: {
-        const T x = sqrt3 * dist / m_abs(p[0]);
-        v = m_abs(p[1]) * (T(1) + x) * m_exp(-x);
-        break;
-      }
-      case OP_MATERN2: {
-        const T l = m_abs(p[0]);
-        const T x = sqrt5 * dist / l;
-        v = m_abs(p[1]) * (T(1) + x + (T(5) * dist * dist) / (T(3) * l * l)) *
-            m_exp(-x);
-        break;
-      }
-      case OP_HYPERTAN:
-        v = m_tanh(p[0] * dot + p[1]);
-        break;
-      case OP_MULTIQUADRIC:
-        v = m_hypot(sq, p[0]);
-        break;
-      case OP_RATQUAD:
-        v = m_pow(T(1) + sq / (T(2) * p[0] * p[1] * p[1]), -p[0]);
-        break;
-      default:
-        v = static_cast<T>(NAN);  // unknown opcode: never a silent value
-    }
-    stack[top++] = v;
-  }
-  return stack[0];
-}
 
 template <typename T, int METHOD>
 __global__ void __launch_bounds__(TX * TY)

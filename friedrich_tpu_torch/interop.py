@@ -72,10 +72,11 @@ def prior_spec(prior) -> dict:
 
 def state_from_arrays(arrays: dict, kernel_spec: dict, prior_spec: dict,
                       eps: Optional[float] = None, method: str = "gram",
-                      device=None) -> GPState:
+                      device=None, backend: str = "dense", block=None) -> GPState:
     """A port state from the JAX state's arrays (numpy ``x``, ``resid``,
-    ``l``, ``n``, ``noise``) and its kernel and prior specs. The dtype is
-    that of ``arrays["x"]``."""
+    ``l``, ``n``, ``noise``), its kernel and prior specs, and its static
+    fields (``eps``, ``method``, ``backend``, ``block``). The dtype is that
+    of ``arrays["x"]``."""
     device = resolve_device(device)
     x = torch.as_tensor(np.asarray(arrays["x"]), device=device)
     dtype = x.dtype
@@ -87,13 +88,14 @@ def state_from_arrays(arrays: dict, kernel_spec: dict, prior_spec: dict,
         x=x, resid=t("resid"), l=t("l"), n=int(arrays["n"]), noise=t("noise"),
         kernel=kernel_from_spec(kernel_spec).to(dtype, device),
         prior=prior_from_spec(prior_spec).to(dtype, device),
-        eps=eps, method=method,
+        eps=eps, method=method, backend=backend, block=block,
     )
 
 
-def state_to_arrays(state: GPState) -> tuple[dict, dict, dict]:
+def state_to_arrays(state: GPState) -> tuple[dict, dict, dict, dict]:
     """Inverse of :func:`state_from_arrays`: ``(arrays, kernel_spec,
-    prior_spec)``."""
+    prior_spec, static)``, ``static`` the keyword arguments ``eps``,
+    ``method``, ``backend`` and ``block``."""
     arrays = {
         "x": state.x.cpu().numpy(),
         "resid": state.resid.cpu().numpy(),
@@ -101,4 +103,6 @@ def state_to_arrays(state: GPState) -> tuple[dict, dict, dict]:
         "n": np.asarray(state.n, dtype=np.int32),
         "noise": state.noise.cpu().numpy(),
     }
-    return arrays, kernel_spec(state.kernel), prior_spec(state.prior)
+    static = {"eps": state.eps, "method": state.method, "backend": state.backend,
+              "block": state.block}
+    return arrays, kernel_spec(state.kernel), prior_spec(state.prior), static

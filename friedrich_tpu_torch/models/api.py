@@ -17,6 +17,7 @@ from typing import Any, Optional
 
 import torch
 
+from .. import config
 from ..config import (
     DEFAULT_CONVERGENCE_FRACTION,
     DEFAULT_MAX_ITER,
@@ -108,10 +109,14 @@ class GaussianProcess:
         storage: Optional[str] = None,
         dtype=None,
         device=None,
+        panel_block=None,
     ) -> "GaussianProcess":
         """Raw constructor (``mod.rs:142-167``). ``dtype`` overrides the
         default compute dtype; ``device`` the default device (CUDA unless
-        ``config.set_device`` says otherwise)."""
+        ``config.set_device`` says otherwise). ``backend``: ``"dense"``,
+        ``"streamed"`` or ``"auto"`` (``models/gp.resolve_backend``);
+        ``panel_block``: the streamed backend's panel width or width
+        schedule (default ``ops/partition.panel_widths``)."""
         if noise < 0:
             raise ConfigError(
                 f"The noise parameter should be non-negative but we tried to "
@@ -129,7 +134,7 @@ class GaussianProcess:
             )
         state, ok = core.make_state(
             kernel, prior, noise, x, y, eps=cholesky_epsilon, method=method,
-            cap=capacity, backend=backend, storage=storage,
+            cap=capacity, backend=backend, storage=storage, block=panel_block,
         )
         if not bool(ok):
             raise CholeskyError()
@@ -233,7 +238,13 @@ class GaussianProcess:
 
     def add_samples(self, inputs, outputs) -> None:
         """Incremental O(n^2 k) update (``mod.rs:173-190``), atomic: on a
-        failed rank-update the model is left unchanged."""
+        failed rank-update the model is left unchanged.
+
+        When the old and the appended factor would not fit the card together
+        (``config.two_matrices_fit``), the append writes the new rows into
+        the factor in place, and a failed one puts them back to the
+        identity padding (``models/gp.repair_failed_append``), as the JAX
+        package's donated append does."""
         state = self._state
         x_new, _ = as_input_matrix(inputs, dtype=state.x.dtype, device=state.x.device)
         y_new = as_output_vector(outputs, dtype=state.resid.dtype, device=state.x.device)
@@ -248,10 +259,14 @@ class GaussianProcess:
         if n + k > cap:
             # amortized growth, extendable_matrix.rs:38 (x1.5 policy)
             state = core.grow_capacity(state, max(n + k, math.ceil(cap * GROWTH_FACTOR)))
-        new_state = core.add_samples_padded(state, x_new, y_new)
+        in_place = not config.two_matrices_fit(state.capacity, state.l.element_size(),
+                                               state.l.device)
+        new_state = core.add_samples_padded(state, x_new, y_new, in_place=in_place)
         # validate BEFORE committing: a failed rank-update must not leave the
         # model corrupted for callers that catch the error and keep using it
         if not bool(torch.all(torch.isfinite(torch.diagonal(new_state.l)))):
+            if in_place:
+                core.repair_failed_append(state.l, n, k)
             raise CholeskyError(
                 "add_samples: rank-update of the Cholesky factor failed "
                 "(new points make the covariance non-PSD); consider setting "

@@ -64,6 +64,7 @@ class GaussianProcessBuilder:
         self._method = "gram"
         self._capacity: Optional[int] = None
         self._backend = "dense"
+        self._panel_block = None
         self._dtype: Optional[torch.dtype] = None
         # "auto": the reference's full fit below n=24,576; above it, fit the
         # hyperparameters on a max(8192, n // 5) subset, then build the
@@ -135,9 +136,11 @@ class GaussianProcessBuilder:
         return self
 
     def set_backend(self, backend: str) -> "GaussianProcessBuilder":
-        """'dense' (materialize K, then factor) or 'auto' (dense at every
-        size in this port). 'streamed', 'tiled' and 'hybrid' are not
-        ported yet and raise."""
+        """'dense' (materialize K, then factor), 'streamed' (build and factor
+        K panel by panel, never holding it) or 'auto' (streamed on a card
+        where the dense backend's K and L would not fit,
+        ``models/gp.resolve_backend``). 'tiled' and 'hybrid' are not ported
+        yet and raise."""
         check_backend(backend)
         self._backend = backend
         return self
@@ -170,13 +173,15 @@ class GaussianProcessBuilder:
             raise not_ported(f"factor precision {precision!r}")
         return self
 
-    def set_panel_block(self, block: Optional[int]) -> "GaussianProcessBuilder":
-        """Panel width of the streamed backend: only None is ported; a
-        width raises."""
-        if block is not None and block <= 0:
+    def set_panel_block(self, block) -> "GaussianProcessBuilder":
+        """Panel width of the streamed backend's full-n build: a width
+        (snapped to a divisor of the capacity), a schedule of widths summing
+        to the capacity, or None for the default
+        (``ops/partition.panel_widths``)."""
+        widths = block if isinstance(block, (tuple, list)) else (block,)
+        if block is not None and any(not isinstance(w, int) or w <= 0 for w in widths):
             raise ConfigError("panel block must be strictly positive")
-        if block is not None:
-            raise not_ported("panel block")
+        self._panel_block = block
         return self
 
     def set_fit_subsample(self, subsample) -> "GaussianProcessBuilder":
@@ -236,7 +241,7 @@ class GaussianProcessBuilder:
         t0 = _clock(x.device)
         gp = self._new(
             self._prior, kernel, self._noise, x, y, capacity=self._capacity,
-            backend=self._backend,
+            backend=self._backend, panel_block=self._panel_block,
         )
         self.timings["build"] = _clock(x.device) - t0
         if self._should_fit_prior or self._should_fit_kernel:
@@ -296,7 +301,7 @@ class GaussianProcessBuilder:
         t0 = _clock(x.device)
         gp = self._new(
             prior, sub_gp.kernel, sub_gp.noise, x, y, capacity=self._capacity,
-            backend=self._backend,
+            backend=self._backend, panel_block=self._panel_block,
         )
         self.timings["build"] = _clock(x.device) - t0
         return gp

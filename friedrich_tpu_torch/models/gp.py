@@ -1,7 +1,7 @@
 """Functional GP core: the model state and its operations.
 
-Counterpart of ``friedrich_tpu/models/gp.py`` (dense backend) and of the
-reference's ``GaussianProcess`` struct and methods
+Counterpart of ``friedrich_tpu/models/gp.py`` (dense and streamed backends)
+and of the reference's ``GaussianProcess`` struct and methods
 (``gaussian_process/mod.rs:59-446``). :class:`GPState` is an immutable
 dataclass; every operation returns new tensors or a new state.
 
@@ -25,6 +25,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from .. import config
 from ..ops.cholesky import cho_solve, cholesky_append_padded, factor, solve_lower, solve_lower_t
 from ..ops.covariance import (
     cross_covariance,
@@ -32,12 +33,13 @@ from ..ops.covariance import (
     kernel_diag,
     train_covariance_padded,
 )
+from ..ops.streamed import streamed_cholesky_factor
 from ..utils.errors import ConfigError, not_ported
 
 LOG_2PI = math.log(2.0 * math.pi)
 
 #: Backends of the JAX package that this port does not run yet.
-_NOT_PORTED_BACKENDS = ("streamed", "tiled", "hybrid")
+_NOT_PORTED_BACKENDS = ("tiled", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -56,8 +58,13 @@ class GPState:
     prior: Any
     eps: Optional[float] = None
     method: str = "gram"
-    # "dense" materializes K, then factors it; "auto" resolves to "dense"
+    # "dense" materializes K, then factors it; "streamed" builds and factors
+    # K panel by panel, never holding it; "auto" picks one per build
+    # (resolve_backend)
     backend: str = "dense"
+    # streamed-backend panel width or width schedule; None = the default
+    # (ops/partition.panel_widths)
+    block: Any = None
 
     @property
     def capacity(self) -> int:
@@ -90,13 +97,31 @@ def check_backend(backend: str, storage: Optional[str] = None) -> None:
     """Raise for a backend or factor storage this port cannot run."""
     if backend in _NOT_PORTED_BACKENDS:
         raise not_ported(f"backend={backend!r}")
-    if backend not in ("dense", "auto"):
+    if backend not in ("dense", "streamed", "auto"):
         raise ConfigError(f"unknown backend {backend!r}")
     if storage is not None:
         raise not_ported(f"factor storage {storage!r}")
 
 
-def _build_factor(kernel, x_pad, n, noise, eps, method):
+def resolve_backend(backend: str, cap: int, dtype: torch.dtype, device) -> str:
+    """The backend a build runs: ``"auto"`` is ``"streamed"`` on a CUDA
+    device when the dense backend's K and L (2 cap^2 entries) would pass
+    ``config.TWO_MATRIX_FRACTION`` of the card's memory, and ``"dense"``
+    otherwise and on the CPU. Replaces the JAX package's TPU-measured
+    threshold (``friedrich_tpu/models/gp.py:auto_large_threshold``)."""
+    if backend != "auto":
+        return backend
+    device = torch.device(device)
+    itemsize = torch.finfo(dtype).bits // 8
+    if device.type == "cuda" and not config.two_matrices_fit(cap, itemsize, device):
+        return "streamed"
+    return "dense"
+
+
+def _build_factor(kernel, x_pad, n, noise, eps, method, backend="dense", block=None):
+    if resolve_backend(backend, x_pad.shape[0], x_pad.dtype, x_pad.device) == "streamed":
+        return streamed_cholesky_factor(kernel, x_pad, n, noise, eps=eps, block=block,
+                                        method=method)
     k_pad = train_covariance_padded(kernel, x_pad, n, noise, method=method)
     return factor(k_pad, eps)
 
@@ -112,14 +137,16 @@ def make_state(
     cap: Optional[int] = None,
     backend: str = "dense",
     storage: Optional[str] = None,
+    block=None,
 ) -> tuple[GPState, torch.Tensor]:
     """Build a trained state from live data (``GaussianProcess::new``,
     ``mod.rs:142-167``): residualize against the prior, build the padded
     covariance, factor it.
 
     Returns ``(state, ok)``; ``ok`` is False if the factorization produced
-    non-finite values (caller raises ``CholeskyError``). ``storage`` is the
-    JAX package's factor storage knob: only None is ported.
+    non-finite values (caller raises ``CholeskyError``). ``block`` is the
+    streamed backend's panel width or schedule. ``storage`` is the JAX
+    package's factor storage knob: only None is ported.
     """
     check_backend(backend, storage)
     n, _ = x.shape
@@ -134,10 +161,12 @@ def make_state(
     prior = prior.to(x.dtype, x.device)
     noise = torch.as_tensor(noise, dtype=x.dtype, device=x.device)
     x_pad, r_pad = pad_capacity(x, y - prior.mean(x), cap)
-    l_pad, ok = _build_factor(kernel, x_pad, n, noise, eps, method)
+    if isinstance(block, list):
+        block = tuple(block)
+    l_pad, ok = _build_factor(kernel, x_pad, n, noise, eps, method, backend, block)
     state = GPState(
         x=x_pad, resid=r_pad, l=l_pad, n=n, noise=noise, kernel=kernel,
-        prior=prior, eps=eps, method=method, backend=backend,
+        prior=prior, eps=eps, method=method, backend=backend, block=block,
     )
     return state, ok
 
@@ -146,7 +175,8 @@ def rebuild_cholesky(state: GPState) -> tuple[GPState, torch.Tensor]:
     """Re-factor the training covariance for the current hyperparameters
     (the per-iteration rebuild at ``optimizer.rs:133-136,267-270``)."""
     l_pad, ok = _build_factor(
-        state.kernel, state.x, state.n, state.noise, state.eps, state.method
+        state.kernel, state.x, state.n, state.noise, state.eps, state.method,
+        state.backend, state.block,
     )
     return state.replace(l=l_pad), ok
 
@@ -169,12 +199,15 @@ def grow_capacity(state: GPState, new_cap: int) -> GPState:
 # ---------------------------------------------------------------------------
 
 
-def add_samples_padded(state: GPState, x_new: torch.Tensor, y_new: torch.Tensor) -> GPState:
+def add_samples_padded(state: GPState, x_new: torch.Tensor, y_new: torch.Tensor,
+                       in_place: bool = False) -> GPState:
     """Append ``k`` samples in O(n^2 k) via the blocked Cholesky append.
 
     Requires capacity >= n + k (the facade grows first). Matches
     ``add_samples`` (``mod.rs:173-190``): residualize against the CURRENT
-    prior, grow buffers, rank-update the factor.
+    prior, grow buffers, rank-update the factor. ``in_place=True`` writes
+    the new rows into ``state.l`` itself (shared by the returned state)
+    instead of a copy; :func:`repair_failed_append` undoes it.
     """
     n, k = state.n, x_new.shape[0]
     x_pad = state.x.clone()
@@ -183,9 +216,19 @@ def add_samples_padded(state: GPState, x_new: torch.Tensor, y_new: torch.Tensor)
     r_pad[n:n + k] = y_new - state.prior.mean(x_new)
     l_pad = cholesky_append_padded(
         state.l, state.kernel, x_pad, n, k, state.noise,
-        eps=state.eps, method=state.method,
+        eps=state.eps, method=state.method, in_place=in_place,
     )
     return state.replace(x=x_pad, resid=r_pad, l=l_pad, n=n + k)
+
+
+def repair_failed_append(l_pad: torch.Tensor, n_old: int, k: int) -> None:
+    """Put rows ``[n_old, n_old + k)`` of a factor back to the identity
+    padding, in place: the only rows an in-place append writes (the JAX
+    package's ``_repair_failed_append``, ``friedrich_tpu/models/api.py:67-83``).
+    """
+    l_pad[n_old:n_old + k] = 0.0
+    idx = torch.arange(n_old, n_old + k, device=l_pad.device)
+    l_pad[idx, idx] = 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -122,9 +122,12 @@ def cholesky_append_padded(
     noise,
     eps=None,
     method: str = "gram",
+    in_place: bool = False,
 ) -> torch.Tensor:
     """Blocked rank-k append of ``k_new`` rows to a padded Cholesky factor;
-    returns a new factor (``l_pad`` is not modified).
+    returns a new factor (``l_pad`` is not modified), or, with
+    ``in_place=True``, writes rows ``[n_old, n_old+k)`` of ``l_pad`` itself
+    and returns it: no second (cap, cap) factor is held.
 
     Replaces the reference's per-row ``Cholesky::insert_column`` loop
     (``algebra/mod.rs:97-126``) with one blocked update:
@@ -151,7 +154,7 @@ def cholesky_append_padded(
         l22, _ = cholesky(m22)
     else:
         l22 = _unblocked_cholesky_substitute(m22, eps)
-    l_new = l_pad.clone()
+    l_new = l_pad if in_place else l_pad.clone()
     l_new[n_old:n_old + k_new] = s.mT  # columns >= n_old are zero
     l_new[n_old:n_old + k_new, n_old:n_old + k_new] = l22
     return l_new

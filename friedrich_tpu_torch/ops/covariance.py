@@ -39,25 +39,38 @@ def kernel_diag(kernel, x: torch.Tensor) -> torch.Tensor:
     return kernel.pointwise(diag_features(x, kernel.needs))
 
 
-def plain_train_covariance_padded(kernel, x_pad: torch.Tensor, n: int, noise,
-                                  method: str = "gram",
-                                  rows: tuple[int, int] | None = None) -> torch.Tensor:
-    """Plain version of :func:`train_covariance_padded`; ``rows=(r0, r1)``
-    builds only that strip of rows."""
-    cap = x_pad.shape[0]
-    r0, r1 = rows if rows is not None else (0, cap)
-    k = plain_cross_covariance(kernel, x_pad[r0:r1], x_pad, method=method)
+def plain_train_covariance_block(kernel, x1: torch.Tensor, x2: torch.Tensor, n: int, noise,
+                                 row0: int = 0, col0: int = 0,
+                                 method: str = "gram") -> torch.Tensor:
+    """One block of the padded training covariance: rows ``row0 ..
+    row0+m1`` (inputs ``x1``) by columns ``col0 .. col0+m2`` (inputs
+    ``x2``), with the analytic diagonal and the identity outside the live
+    ``n x n`` block decided from those global indices."""
+    k = plain_cross_covariance(kernel, x1, x2, method=method)
     # The diagonal is k(x,x) + noise^2 with EXACTLY zero distance — set it
     # from the analytic per-row kernel diagonal rather than the pairwise
     # tile, whose gram-identity cancellation (|x|^2+|x|^2-2x.x) otherwise
     # puts the matmul's rounding error directly on the pivots.
-    kd = kernel_diag(kernel, x_pad) + noise * noise
-    ridx = torch.arange(r0, r1, device=x_pad.device)
-    cidx = torch.arange(cap, device=x_pad.device)
+    kd = kernel_diag(kernel, x2) + noise * noise
+    ridx = torch.arange(row0, row0 + x1.shape[0], device=x1.device)
+    cidx = torch.arange(col0, col0 + x2.shape[0], device=x1.device)
     diag = ridx[:, None] == cidx[None, :]
     k = torch.where(diag, kd[None, :], k)
     live = (ridx[:, None] < n) & (cidx[None, :] < n)
     return torch.where(live, k, diag.to(k.dtype))
+
+
+def plain_train_covariance_padded(kernel, x_pad: torch.Tensor, n: int, noise,
+                                  method: str = "gram",
+                                  rows: tuple[int, int] | None = None,
+                                  cols: tuple[int, int] | None = None) -> torch.Tensor:
+    """Plain version of :func:`train_covariance_padded`; ``rows=(r0, r1)``
+    and ``cols=(c0, c1)`` build only that block."""
+    cap = x_pad.shape[0]
+    r0, r1 = rows if rows is not None else (0, cap)
+    c0, c1 = cols if cols is not None else (0, cap)
+    return plain_train_covariance_block(kernel, x_pad[r0:r1], x_pad[c0:c1], n, noise,
+                                        row0=r0, col0=c0, method=method)
 
 
 def plain_cross_covariance_train_padded(kernel, x_pad: torch.Tensor, n: int,

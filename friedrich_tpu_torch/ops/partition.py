@@ -1,6 +1,14 @@
-"""Block-size selection for the strip loops."""
+"""Block-size selection for the strip loops, and the streamed factor's
+panel widths."""
 
 from __future__ import annotations
+
+#: Panel-width target of the streamed factorization when none is given,
+#: snapped to a divisor of the capacity by :func:`pick_block`: the fastest
+#: of the targets 2048, 4096 and 8192 in the sweep of ``chip_smoke.py``
+#: phase 5 at capacity 50,512 on an NVIDIA H100 80GB HBM3 at 700 W
+#: (1.42, 1.39 and 1.53 s; PERF.md).
+DEFAULT_PANEL_TARGET = 4096
 
 
 def pick_block(extent: int, target: int) -> int:
@@ -13,3 +21,34 @@ def pick_block(extent: int, target: int) -> int:
     while extent % b:
         b -= 1
     return b
+
+
+def panel_widths(cap: int, block=None) -> tuple[int, ...]:
+    """The widths of the streamed factorization's panels, left to right.
+
+    ``block`` is a width, snapped to a divisor of ``cap`` by
+    :func:`pick_block`, or a schedule: a tuple or list of positive widths
+    summing to ``cap`` (``friedrich_tpu/ops/streamed.py:433-446``). ``None``
+    takes :data:`DEFAULT_PANEL_TARGET`; where ``cap`` has no divisor within
+    half of it, the panels are that width with a narrower last one, which
+    the panel-strip kernel takes as it takes any width.
+    """
+    if isinstance(block, (tuple, list)):
+        widths = tuple(int(w) for w in block)
+        if any(w <= 0 for w in widths) or sum(widths) != cap:
+            raise ValueError(
+                f"panel width schedule must be positive and sum to the "
+                f"capacity {cap}, got {widths}"
+            )
+        return widths
+    if block is not None:
+        if int(block) <= 0:
+            raise ValueError(f"panel width must be positive, got {block}")
+        b = pick_block(cap, int(block))
+        return (b,) * (cap // b)
+    target = min(DEFAULT_PANEL_TARGET, cap)
+    b = pick_block(cap, target)
+    if 2 * b >= target:
+        return (b,) * (cap // b)
+    full, last = divmod(cap, target)
+    return (target,) * full + ((last,) if last else ())

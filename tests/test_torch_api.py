@@ -15,6 +15,7 @@ import friedrich_tpu_torch.priors as tp
 from friedrich_tpu_torch import config, demo
 from friedrich_tpu_torch.models import gp as tgp
 from friedrich_tpu_torch.models import optimizer as topt
+from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
 
 
 @pytest.fixture(autouse=True)
@@ -60,14 +61,17 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: tft.GaussianProcessBuilder(X, Y).set_backend("streamed"),
+    # the streamed backend runs, but not its factor storage and precision knobs
+    lambda: tft.GaussianProcessBuilder(X, Y).set_backend("streamed").set_factor_precision("f32"),
     lambda: tft.GaussianProcessBuilder(X, Y).set_backend("tiled"),
     lambda: tft.GaussianProcessBuilder(X, Y).set_backend("hybrid"),
-    lambda: tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y, backend="streamed"),
+    lambda: tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y, backend="streamed",
+                                    storage="bf16"),
     lambda: tft.GaussianProcessBuilder(X, Y).set_factor_storage("bf16"),
     lambda: tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y, storage="bf16"),
     lambda: tft.GaussianProcessBuilder(X, Y).set_factor_precision("f32"),
-    lambda: tft.GaussianProcessBuilder(X, Y).set_panel_block(256),
+    lambda: streamed_cholesky_factor(tk.SquaredExp(), torch.zeros((4, 1), dtype=torch.float64), 4, 0.1,
+                                     block=2, precision="f32"),
     lambda: tft.GaussianProcessBuilder(X, Y).set_fit_gradient("hutchinson"),
     lambda: tft.GaussianProcessBuilder(X, Y).set_fit_polish(True),
     lambda: tft.GaussianProcess.default(X, Y).fit_map(),

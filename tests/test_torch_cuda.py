@@ -1,6 +1,6 @@
-"""The CUDA covariance-tile kernel against its plain PyTorch version, on the
-card. The kernel has no CPU mode, so these tests skip without CUDA; run
-them on a GPU machine with
+"""The CUDA covariance-tile and panel-strip kernels against their plain
+PyTorch versions, on the card. The kernels have no CPU mode, so these tests
+skip without CUDA; run them on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``.
 """
 
@@ -10,7 +10,10 @@ import torch
 
 import friedrich_tpu_torch.kernels as tk
 from friedrich_tpu_torch.ops import covariance as cov
+from friedrich_tpu_torch.ops import panel_fused
 from friedrich_tpu_torch.ops.cuda import covariance_cuda as cc
+from friedrich_tpu_torch.ops.cuda import panel_strip_cuda as pc
+from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +29,7 @@ KERNELS = {
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the covariance kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -60,3 +63,51 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         cc.covariance(kern, x.T, x.T, 8)
     with pytest.raises(ValueError, match="CUDA"):
         cc.covariance(kern, x, x.cpu(), 8)
+
+
+# The panel strip: the kernel map as above, plus a downdate of length j0
+# whose two versions sum in different orders, held to its forward-error
+# bound j0 * u * (|L_tail| |L_rows|^T) on top of the map's tolerance.
+@pytest.mark.parametrize("dtype,rtol,atol,unit", [(torch.float32, 2e-5, 2e-5, 2.0**-24),
+                                                  (torch.float64, 0, 1e-12, 2.0**-53)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", KERNELS)
+def test_panel_strip_matches_plain_version(card, name, dtype, rtol, atol, unit):
+    rng = np.random.default_rng(72)
+    cap, n = 1000, 937
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), dtype=dtype, device=card)
+    l_full = torch.as_tensor(np.tril(rng.normal(size=(cap, cap)) * 0.1), dtype=dtype, device=card)
+    kern = KERNELS[name].to(dtype, card)
+    for j0, block in ((0, 384), (300, 384), (300, 500), (800, 200)):
+        prefix = l_full.clone()
+        prefix[:, j0:] = 0.0
+        before = pc.LAUNCHES
+        got = panel_fused.panel_strip(kern, x[j0:], x[j0:j0 + block], prefix, n, 0.3, j0, block)
+        assert pc.LAUNCHES == before + 1
+        want = panel_fused.plain_panel_strip(kern, x[j0:], x[j0:j0 + block], prefix, n, 0.3, j0, block)
+        bound = j0 * unit * (prefix[j0:, :j0].abs() @ prefix[j0:j0 + block, :j0].abs().mT)
+        assert bool(((got - want).abs() <= atol + rtol * want.abs() + bound).all())
+
+
+def test_streamed_factor_on_the_card_matches_the_cpu(card):
+    rng = np.random.default_rng(73)
+    x = rng.normal(size=(1300, 4))
+    kern = KERNELS["Composite"]
+    got, ok = streamed_cholesky_factor(kern.to(torch.float64, card), torch.as_tensor(x, device=card),
+                                       1250, 0.3, block=(500, 300, 500))
+    want, want_ok = streamed_cholesky_factor(kern.to(torch.float64, "cpu"), torch.as_tensor(x), 1250,
+                                             0.3, block=(500, 300, 500))
+    assert bool(ok) and bool(want_ok)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+
+
+def test_panel_strip_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x = torch.zeros((8, 3), device=card)
+    l_full = torch.zeros((8, 8), device=card)
+    kern = tk.SquaredExp()
+    with pytest.raises(ValueError, match="dtype"):
+        pc.panel_strip(kern, x.double(), x[:4].double(), l_full, 8, 0.1, 0, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        pc.panel_strip(kern, x, x[:4], l_full.T, 8, 0.1, 0, 4)
+    with pytest.raises(ValueError, match="fit"):
+        pc.panel_strip(kern, x[6:], x[6:], l_full, 8, 0.1, 6, 4)

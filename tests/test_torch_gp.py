@@ -36,7 +36,8 @@ def to_port(jstate):
     arrays = {k: np.asarray(getattr(jstate, k)) for k in ("x", "resid", "l", "n", "noise")}
     return interop.state_from_arrays(
         arrays, _kernel_spec(jstate.kernel), _prior_spec(jstate.prior),
-        eps=jstate.eps, method=jstate.method, device="cpu",
+        eps=jstate.eps, method=jstate.method, device="cpu", backend=jstate.backend,
+        block=jstate.block,
     )
 
 
@@ -82,8 +83,10 @@ def test_make_state_fields_match_jax(case):
         close(getattr(tstate, field), getattr(jstate, field))
     assert tstate.n == int(jstate.n)
     carried = to_port(jstate)
-    arrays, kspec, pspec = interop.state_to_arrays(carried)
+    arrays, kspec, pspec, static = interop.state_to_arrays(carried)
     assert kspec == _kernel_spec(jstate.kernel) and pspec == _prior_spec(jstate.prior)
+    assert static == {"eps": jstate.eps, "method": jstate.method, "backend": jstate.backend,
+                      "block": jstate.block}
     for field in ("x", "resid", "l", "noise"):
         np.testing.assert_array_equal(arrays[field], np.asarray(getattr(jstate, field)))
 
