@@ -31,7 +31,14 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    panels of the final factor, and timed on the middle one beside its bound,
    its plain version and the downdate alone as one ``torch.addmm``; last, a
    panel-width sweep at 100,512 and a ``torch.profiler`` breakdown (device
-   time by kernel, idle share) of one streamed build+factor there.
+   time by kernel, idle share) of one streamed build+factor there. Phase 5a
+   also runs a capacity that is not a multiple of 4 (the float32 kernel's
+   cp.async producer), with NaN right of the prefix, which the kernel must
+   never read;
+6. (5d) a prior-only refit (``fit_parameters(fit_prior=True,
+   fit_kernel=False)``) of a freshly built 100,512 streamed model: the
+   rebuild writes into the old factor's buffer, its peak memory stays below
+   two factors, and its factor equals the build's (K is unchanged).
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 JSON line describing each kernel, and ``{"ok": true, "device": ...}``.
@@ -53,6 +60,7 @@ import numpy as np
 #: Published H100 SXM rates used for the bound (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 #: Tolerances of the kernel against its plain version, held as
 #: ``|got - want| <= atol + rtol * |want|``. float64: the two differ only
@@ -154,17 +162,23 @@ def phase_environment() -> None:
     per_kernel: dict = {}
     entry = None
     for line in report.splitlines():  # each entry function, then its "Used N registers"
-        m = re.search(r"Compiling entry function .*?(cov_kernel|panel_strip_kernel)I([fd])Li(\d)", line)
+        m = re.search(r"Compiling entry function '\w*?\d+(cov_kernel|panel_strip_kernel|"
+                      r"panel_strip_tf32x3_kernel)I(\w*?)EEv", line)
         if m:
-            entry = m.groups()
-        m = re.search(r"Used (\d+) registers", line)
+            args = (m.group(2).replace("Lb1E", ",tma").replace("Lb0E", ",cp.async")
+                    .replace("Li", "").replace("E", "").replace("f", "float,").replace("d", "double,"))
+            entry = f"{m.group(1)}<{args.replace(',,', ',').strip(',')}>"
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m and entry:
-            name, dtype, method = entry
-            per_kernel[f"{name}<{'float' if dtype == 'f' else 'double'},{method}>"] = int(m.group(1))
+            per_kernel[entry] = {"registers": int(m.group(1)), "static_smem_bytes": int(m.group(2))}
             entry = None
     spills = sorted({int(s) for s in re.findall(r"(\d+) bytes spill stores", report)})
     log(f"kernel build (every csrc/*.cu, one nvcc each, in parallel): {build_s} s -> {path.name}; "
-        f"ptxas registers per instantiation {per_kernel}, spill stores (bytes) {spills}")
+        f"spill stores (bytes) {spills}")
+    log(json.dumps({"ptxas": per_kernel}))
+    for line in report.splitlines():  # ptxas's own warnings, e.g. a serialized wgmma
+        if "warning" in line.lower() or "performance loss" in line.lower():
+            log("ptxas:", line.strip())
 
 
 def phase_kernel_vs_plain() -> None:
@@ -453,24 +467,29 @@ def abs_product(a, b, chunk: int = 4096):
     return out
 
 
-def strip_excess(got, want, l_full, j0: int, block: int, atol: float, rtol: float, unit: float) -> float:
+def strip_excess(got, want, l_full, j0: int, block: int, atol: float, rtol: float, unit: float,
+                 split: float) -> float:
     """Largest amount by which a panel strip misses its plain version beyond
-    atol + rtol |want| + j0 u (|L_tail| |L_rows|^T); <= 0 when within."""
+    atol + rtol |want| + (j0 u + split) (|L_tail| |L_rows|^T); <= 0 when
+    within. ``split``: the float32 kernel's 3xTF32 term
+    (``panel_strip_cuda.SPLIT_ERROR``), 0 in float64."""
     if j0 == 0:
         return excess(got, want, atol, rtol)
-    bound = abs_product(l_full[j0:, :j0], l_full[j0:j0 + block, :j0]).mul_(j0 * unit)
+    bound = abs_product(l_full[j0:, :j0], l_full[j0:j0 + block, :j0]).mul_(j0 * unit + split)
     bound.add_(want.abs(), alpha=rtol).add_(atol)
     return float(((got - want).abs() - bound).max())
 
 
-def strip_bound_ms(rest: int, block: int, j0: int, d: int, itemsize: int) -> tuple[float, str]:
+def strip_bound_ms(rest: int, block: int, j0: int, d: int, itemsize: int,
+                   downdate_flops: float) -> tuple[float, str]:
     """Least time for one panel strip: the downdate's 2 rest B j0 operations
-    and (2d + 9) per entry for the map, over the float32 FMA rate, against
-    the prefix blocks, the inputs and the strip moved once over HBM."""
-    ops = 2 * rest * block * j0 + (2 * d + 9) * rest * block
+    at ``downdate_flops`` and (2d + 9) per entry for the map at the float32
+    rate, against the prefix blocks, the inputs and the strip moved once
+    over HBM. The float32 kernel's downdate is three TF32 products: pass
+    TF32_FLOPS / 3 for its tensor-core bound, FP32_FLOPS for the SIMT one."""
+    t_ops = (2 * rest * block * j0 / downdate_flops + (2 * d + 9) * rest * block / FP32_FLOPS) * 1e3
     nbytes = (rest * j0 + block * j0 + rest * block + (rest + block) * d) * itemsize
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -504,8 +523,10 @@ def profile_factor(kernel, x_pad, n: int, noise) -> dict:
     busy = sum(r[1] for r in kernels)
     if busy <= 0:
         return {"wall_s": wall, "device_time": "not measured (the profiler recorded no device time)"}
+    b2 = [r for r in kernels if "panel_strip" in r[0]]
     return {
         "wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+        "panel_strip_device_s": sum(r[1] for r in b2), "panel_strip_count": sum(r[2] for r in b2),
         "kernels": [{"name": k[:80], "s": t, "share_of_wall": t / wall, "count": c}
                     for k, t, c in kernels[:8]],
     }
@@ -519,40 +540,51 @@ def phase_panel_strip_vs_plain() -> None:
 
     log("== phase 5a: panel-strip kernel against its plain version (ragged shapes)")
     rng = np.random.default_rng(8)
-    cap, n, noise, d = 1000, 937, 0.3, 8
-    # width 384 at j0 0 and 300, the schedule (300, 500, 200) at 0, 300, 800
-    panels = ((0, 384), (300, 384), (0, 300), (300, 500), (800, 200))
-    x_np = rng.normal(size=(cap, d))
-    l_np = np.tril(rng.normal(size=(cap, cap)) * 0.1)
+    n, noise, d = 937, 0.3, 8
+    # capacity 1,000: width 384 at j0 0 and 300, the schedule (300, 500, 200)
+    # at 0, 300, 800; capacity 1,001 (not a multiple of 4: the float32
+    # kernel's cp.async producer) with the schedule (301, 500, 200) and more
+    cases = {1000: ((0, 384), (300, 384), (0, 300), (300, 500), (800, 200)),
+             1001: ((0, 384), (301, 500), (801, 200), (500, 501))}
     worst, bound_worst = {}, {}
-    for dtype, (atol, rtol) in ((torch.float32, (ATOL_F32, RTOL_F32)), (torch.float64, (ATOL_F64, RTOL_F64))):
-        tname = str(dtype).split(".")[-1]
-        x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
-        for j0, block in panels:
-            l_full = torch.as_tensor(l_np, dtype=dtype, device="cuda")
-            l_full[:, j0:] = 0.0  # the factored prefix only
-            for name, kern in test_kernels().items():
-                kern = kern.to(dtype, x.device)
-                for method in ("gram", "gram_bf16", "direct"):
-                    a, r = (ATOL_F32, RTOL_F32) if method == "gram_bf16" else (atol, rtol)
-                    got = panel_strip_cuda.panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, noise,
-                                                       j0, block, method)
-                    want = plain_panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, noise, j0, block,
-                                             method)
-                    torch.cuda.synchronize()
-                    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-                        fail(f"panel strip {name} {method} {tname} j0={j0} B={block}: shape or non-finite")
-                    over = strip_excess(got, want, l_full, j0, block, a, r, UNIT_ROUNDOFF[tname])
-                    err = float((got - want).abs().max())
-                    if not over <= 0:
-                        fail(f"panel strip {name} {method} {tname} j0={j0} B={block}: max error {err} "
-                             f"beyond its tolerance by {over}")
-                    worst[tname] = max(worst.get(tname, 0.0), err)
-                    bound_worst[tname] = max(bound_worst.get(tname, float("-inf")), over)
+    for cap, panels in cases.items():
+        x_np = rng.normal(size=(cap, d))
+        l_np = np.tril(rng.normal(size=(cap, cap)) * 0.1)
+        for dtype, (atol, rtol) in ((torch.float32, (ATOL_F32, RTOL_F32)),
+                                    (torch.float64, (ATOL_F64, RTOL_F64))):
+            tname = str(dtype).split(".")[-1]
+            split = panel_strip_cuda.SPLIT_ERROR if dtype == torch.float32 else 0.0
+            x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
+            for j0, block in panels:
+                l_full = torch.as_tensor(l_np, dtype=dtype, device="cuda")
+                # right of the factored prefix: NaN, which the kernel must never read
+                l_full[:, j0:] = float("nan")
+                for name, kern in test_kernels().items():
+                    kern = kern.to(dtype, x.device)
+                    for method in ("gram", "gram_bf16", "direct"):
+                        a, r = (ATOL_F32, RTOL_F32) if method == "gram_bf16" else (atol, rtol)
+                        got = panel_strip_cuda.panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n,
+                                                           noise, j0, block, method)
+                        want = plain_panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, noise, j0,
+                                                 block, method)
+                        torch.cuda.synchronize()
+                        what = f"panel strip {name} {method} {tname} cap={cap} j0={j0} B={block}"
+                        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                            fail(f"{what}: shape or non-finite")
+                        over = strip_excess(got, want, l_full, j0, block, a, r, UNIT_ROUNDOFF[tname],
+                                            split)
+                        err = float((got - want).abs().max())
+                        if not over <= 0:
+                            fail(f"{what}: max error {err} beyond its tolerance by {over}")
+                        key = f"{tname} cap {cap}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        bound_worst[key] = max(bound_worst.get(key, float("-inf")), over)
     log(json.dumps({"panel_strip_parity": {
         "max_abs_err": worst, "max_excess_over_tolerance": bound_worst,
-        "tolerance": "atol + rtol |plain| + j0 u (|L_tail| |L_rows|^T); f32 2e-5/2e-5, f64 1e-12/0",
-        "shapes": f"cap {cap}, live n {n}, d {d}, (j0, B) in {list(panels)}",
+        "tolerance": "atol + rtol |plain| + (j0 u + split) (|L_tail| |L_rows|^T); f32 2e-5/2e-5, "
+                     f"split {panel_strip_cuda.SPLIT_ERROR}; f64 1e-12/0, split 0",
+        "shapes": f"live n {n}, d {d}, (cap, j0, B) in "
+                  f"{[(c, j0, b) for c, ps in cases.items() for j0, b in ps]}, NaN right of j0",
         "kernels": list(test_kernels()), "methods": ["gram", "gram_bf16", "direct"]}}))
 
 
@@ -592,7 +624,7 @@ def phase_streamed_vs_dense(fitted, n: int) -> dict:
         fail(f"streamed predictions differ from dense: mean {out['mean_max_abs_diff']}, "
              f"variance {out['var_max_abs_diff']} (limit 1e-3)")
     sweep = {}
-    for target in (2048, 4096, 8192):
+    for target in (1024, 2048, 4096, 8192):
         width = pick_block(cap, target)
         t0 = sync()
         l_mat, ok = streamed_cholesky_factor(state.kernel, state.x, state.n, state.noise, block=width)
@@ -606,7 +638,7 @@ def phase_streamed_vs_dense(fitted, n: int) -> dict:
     return out
 
 
-def phase_streamed_full_width(n: int) -> dict:
+def phase_streamed_full_width(n: int) -> tuple[dict, tuple]:
     import torch
 
     import friedrich_tpu_torch as ft
@@ -705,19 +737,22 @@ def phase_streamed_full_width(n: int) -> dict:
 
     # ---- the kernel against the plain version on three panels of the final
     # factor (the build's prefix, with the appended rows below it)
+    fitted = (gp.prior, gp.kernel, gp.noise)
     state = gp.state
     kernel, noise, n_live, x_pad, l_full = state.kernel, state.noise, state.n, state.x, state.l
     del gp, state, mean, var, draw, builder
     torch.cuda.empty_cache()
     starts = np.cumsum((0,) + widths[:-1])
     max_err = 0.0
+    split = panel_strip_cuda.SPLIT_ERROR
     for p in (0, len(widths) // 2, len(widths) - 1):
         j0, block = int(starts[p]), widths[p]
         args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
         got = panel_strip_cuda.panel_strip(*args)
         want = plain_panel_strip(*args)
         err = float((got - want).abs().max())
-        over = strip_excess(got, want, l_full, j0, block, ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"])
+        over = strip_excess(got, want, l_full, j0, block, ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"],
+                            split)
         log(f"panel {p} [{j0}, {j0 + block}): max error {err}, excess over its tolerance {over}")
         max_err = max(max_err, err)
         if not over <= 0:
@@ -726,28 +761,55 @@ def phase_streamed_full_width(n: int) -> dict:
         del got, want
         torch.cuda.empty_cache()
 
-    # ---- times on the middle panel (the widest mid-factor one)
+    # ---- the middle panel (the widest mid-factor one): the downdate of the
+    # kernel and of cuBLAS in float32 against float64, then times
     p = len(widths) // 2
     j0, block = int(starts[p]), widths[p]
     rest = cap - j0
     args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
-    ms = cuda_ms(lambda: panel_strip_cuda.panel_strip(*args), reps=3)
-    plain_ms = cuda_ms(lambda: plain_panel_strip(*args), reps=3)
     k_strip = plain_train_covariance_block(kernel, x_pad[j0:], x_pad[j0:j0 + block], n_live, noise,
                                            row0=j0, col0=j0)
     l_tail, l_rows = l_full[j0:, :j0], l_full[j0:j0 + block, :j0]
-    library_ms = cuda_ms(lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1), reps=3)
+    ref = l_tail.double() @ l_rows.double().mT
+    accuracy = {
+        "max_abs_downdate_f64": float(ref.abs().max()),
+        "kernel_downdate_err": float((k_strip.double() - panel_strip_cuda.panel_strip(*args).double()
+                                      - ref).abs().max()),
+        "cublas_f32_downdate_err": float(((l_tail @ l_rows.mT).double() - ref).abs().max()),
+    }
+    del ref
+    torch.cuda.empty_cache()
+    log(json.dumps({"middle_panel_downdate_vs_float64": accuracy}))
+    # kernel and yardstick in turns: kernel, addmm, kernel, addmm
+    times = {"kernel": [], "addmm": []}
+    for _ in range(2):
+        times["kernel"].append(cuda_ms(lambda: panel_strip_cuda.panel_strip(*args), reps=3))
+        times["addmm"].append(cuda_ms(lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1), reps=3))
+    ms, library_ms = min(times["kernel"]), min(times["addmm"])
+    plain_ms = cuda_ms(lambda: plain_panel_strip(*args), reps=3)
+    torch.set_float32_matmul_precision("high")  # TF32: one product, less precise; for information
+    try:
+        library_tf32_ms = cuda_ms(lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1), reps=3)
+    finally:
+        torch.set_float32_matmul_precision("highest")
     del k_strip, l_tail, l_rows, args
-    bound, bound_by = strip_bound_ms(rest, block, j0, D, 4)
-    log(f"panel strip [{j0}, {j0 + block}) of {cap}, f32: {ms} ms (plain {plain_ms} ms, "
-        f"downdate alone as torch.addmm {library_ms} ms, bound {bound} ms by {bound_by}; "
-        f"{2 * rest * block * j0 / ms / 1e9} TFLOP/s of downdate)")
+    bound, bound_by = strip_bound_ms(rest, block, j0, D, 4, TF32_FLOPS / 3)
+    simt_bound, _ = strip_bound_ms(rest, block, j0, D, 4, FP32_FLOPS)
+    downdate_ops = 2 * rest * block * j0
+    if not ms < library_ms:
+        fail(f"the panel-strip kernel ({ms} ms) is not faster than torch.addmm on the downdate alone "
+             f"({library_ms} ms)")
+    log(f"panel strip [{j0}, {j0 + block}) of {cap}, f32: {ms} ms (runs {times['kernel']}; plain "
+        f"{plain_ms} ms; downdate alone as torch.addmm {library_ms} ms (runs {times['addmm']}), in "
+        f"TF32 {library_tf32_ms} ms (less precise); tensor-core bound {bound} ms by {bound_by} "
+        f"({bound / ms:.3f} of it), SIMT bound {simt_bound} ms; "
+        f"{downdate_ops / ms / 1e9} TFLOP/s of downdate)")
 
     # ---- the panel-width sweep at full width (one factor on the card at a time)
     del l_full
     torch.cuda.empty_cache()
     sweep = {}
-    for target in (2048, 4096, 8192):
+    for target in (1024, 2048, 4096, 8192):
         width = pick_block(cap, target)
         t0 = sync()
         l_mat, ok = streamed_cholesky_factor(kernel, x_pad, n_live, noise, block=width)
@@ -757,7 +819,8 @@ def phase_streamed_full_width(n: int) -> dict:
         del l_mat
         torch.cuda.empty_cache()
     log(json.dumps({"full_width_panel_sweep_s": sweep, "capacity": cap, "n": n_live}))
-    log(json.dumps({"full_width_factor_profile": profile_factor(kernel, x_pad, n_live, noise)}))
+    profile = profile_factor(kernel, x_pad, n_live, noise)
+    log(json.dumps({"full_width_factor_profile": profile}))
     return {
         "name": "panel_strip",
         "route": "cuda",
@@ -770,11 +833,66 @@ def phase_streamed_full_width(n: int) -> dict:
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": library_ms,
-        "library_call": "torch.addmm(k_strip, L[j0:, :j0], L[j0:j0+B, :j0].T, alpha=-1): "
-                        "the downdate alone, without the kernel map",
+        "library_call": "torch.addmm(k_strip, L[j0:, :j0], L[j0:j0+B, :j0].T, alpha=-1) under "
+                        "float32 matmul precision 'highest': the downdate alone, without the kernel map",
+        "bound": "tensor cores: three TF32 products (3xTF32) at 495 TFLOP/s",
+        "simt_bound_ms": simt_bound,
+        "library_tf32_ms": library_tf32_ms,
+        "build_device_s": profile.get("panel_strip_device_s"),
         "shape": f"panel j0={j0} B={block} of capacity {cap}, rest {rest}, d={D}, float32",
-    }
+    }, fitted
 
+
+def phase_refit(fitted, n: int) -> dict:
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
+    from friedrich_tpu_torch.ops.partition import panel_widths
+
+    cap = n + K_ADD
+    log(f"== phase 5d: prior-only refit of a streamed model at capacity {cap}, float32")
+    prior, kernel, noise = fitted
+    x, y, *_ = bench_data(n)
+    t0 = sync()
+    gp = ft.GaussianProcess.new(prior, kernel, noise, None, x, y, dtype="float32", capacity=cap,
+                                backend="streamed", device="cuda")
+    t_build = sync() - t0
+    built = torch.empty((cap, cap), dtype=torch.float32)  # the build's factor, on the host
+    chunk = 8192
+    for r0 in range(0, cap, chunk):
+        built[r0:r0 + chunk].copy_(gp.state.l[r0:r0 + chunk])
+    ptr = gp.state.l.data_ptr()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    panel_strip_cuda.LAUNCHES = 0
+    t0 = sync()
+    gp.fit_parameters(fit_prior=True, fit_kernel=False)
+    t_refit = sync() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = panel_strip_cuda.LAUNCHES
+    l_new = gp.state.l
+    max_diff = max(float((l_new[r0:r0 + chunk] - built[r0:r0 + chunk].cuda()).abs().max())
+                   for r0 in range(0, cap, chunk))
+    two_factors = 2 * cap * cap * 4
+    out = {
+        "build_s": t_build, "refit_s": t_refit, "peak_bytes": peak, "peak_gib": peak / 2**30,
+        "two_factors_bytes": two_factors, "same_buffer": l_new.data_ptr() == ptr,
+        "panel_strip_launches": launches, "max_abs_diff_vs_build": max_diff,
+        "lml": gp.log_marginal_likelihood(),
+    }
+    log(json.dumps({"prior_only_refit": out}))
+    if not out["same_buffer"]:
+        fail("the prior-only refit did not write into the old factor's buffer")
+    if launches != len(panel_widths(cap, gp.state.block)):
+        fail(f"the refit launched the panel-strip kernel {launches} times, expected one per panel")
+    if not peak < two_factors:
+        fail(f"the refit's peak device memory {peak} B is not below two factors ({two_factors} B)")
+    if not max_diff == 0.0:
+        fail(f"the refit's factor differs from the build's by {max_diff} (K is unchanged)")
+    del gp, l_new, built
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -801,7 +919,9 @@ def main() -> int:
     phase_streamed_vs_dense(fitted, args.n)
     del fitted
     torch.cuda.empty_cache()
-    streamed_entry = phase_streamed_full_width(args.streamed_n)
+    streamed_entry, fitted = phase_streamed_full_width(args.streamed_n)
+    torch.cuda.empty_cache()
+    phase_refit(fitted, args.streamed_n)
     log(smi_line())
     log(json.dumps({"kernels": [entry, streamed_entry]}))
     log(json.dumps({"ok": True, "device": {

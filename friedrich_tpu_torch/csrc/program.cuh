@@ -65,13 +65,12 @@ __device__ __forceinline__ float to_bf16_float(T v) {
 
 // Runs the postfix program on one entry's features. The formulas are those
 // of friedrich_tpu_torch/kernels/{stationary,dot}.py `pointwise`, in the
-// same order of operations. Not inlined: one copy per dtype, instead of
-// one per entry of the unrolled register tile, keeps registers and build
-// time down.
+// same order of operations. Inlined where it is called once, in a rolled
+// loop; see eval_program for unrolled register tiles.
 template <typename T>
-__device__ __noinline__ T eval_program(int n_ops, const int* ops,
-                                       const int* offs, const T* prm, T dot,
-                                       T sq, T dist) {
+__device__ __forceinline__ T run_program(int n_ops, const int* ops,
+                                         const int* offs, const T* prm, T dot,
+                                         T sq, T dist) {
   const T sqrt3 = static_cast<T>(1.7320508075688772);
   const T sqrt5 = static_cast<T>(2.23606797749979);
   T stack[MAX_OPS];
@@ -127,6 +126,15 @@ __device__ __noinline__ T eval_program(int n_ops, const int* ops,
     stack[top++] = v;
   }
   return stack[0];
+}
+
+// run_program, not inlined: one copy per dtype, instead of one per entry of
+// an unrolled register tile, keeps registers and build time down.
+template <typename T>
+__device__ __noinline__ T eval_program(int n_ops, const int* ops,
+                                       const int* offs, const T* prm, T dot,
+                                       T sq, T dist) {
+  return run_program<T>(n_ops, ops, offs, prm, dot, sq, dist);
 }
 
 }  // namespace

@@ -118,10 +118,10 @@ def resolve_backend(backend: str, cap: int, dtype: torch.dtype, device) -> str:
     return "dense"
 
 
-def _build_factor(kernel, x_pad, n, noise, eps, method, backend="dense", block=None):
+def _build_factor(kernel, x_pad, n, noise, eps, method, backend="dense", block=None, l0=None):
     if resolve_backend(backend, x_pad.shape[0], x_pad.dtype, x_pad.device) == "streamed":
         return streamed_cholesky_factor(kernel, x_pad, n, noise, eps=eps, block=block,
-                                        method=method)
+                                        method=method, l0=l0)
     k_pad = train_covariance_padded(kernel, x_pad, n, noise, method=method)
     return factor(k_pad, eps)
 
@@ -171,12 +171,21 @@ def make_state(
     return state, ok
 
 
-def rebuild_cholesky(state: GPState) -> tuple[GPState, torch.Tensor]:
+def rebuild_cholesky(state: GPState, reuse_buffer: bool = False) -> tuple[GPState, torch.Tensor]:
     """Re-factor the training covariance for the current hyperparameters
-    (the per-iteration rebuild at ``optimizer.rs:133-136,267-270``)."""
+    (the per-iteration rebuild at ``optimizer.rs:133-136,267-270``).
+
+    ``reuse_buffer=True`` writes the new factor into the CURRENT factor's
+    buffer on the streamed backend (the JAX package's donation,
+    ``friedrich_tpu/models/gp.py:345-370``), so old and new factor never
+    coexist: at a capacity where two factors do not fit the card, that is
+    what lets the rebuild run. ``state`` must not be used afterwards: its
+    factor is overwritten, and on a failed rebuild (``ok`` False) it cannot
+    be recovered. The dense backend builds a new factor either way.
+    """
     l_pad, ok = _build_factor(
         state.kernel, state.x, state.n, state.noise, state.eps, state.method,
-        state.backend, state.block,
+        state.backend, state.block, l0=state.l if reuse_buffer else None,
     )
     return state.replace(l=l_pad), ok
 

@@ -259,7 +259,10 @@ def fit_subsampled(
     sub_state, iterations = fit_kernel_noise(
         sub_state, max_iter, convergence_fraction, max_time, gradient=gradient
     )
-    state, ok = rebuild_cholesky(state.replace(kernel=sub_state.kernel, noise=sub_state.noise))
+    # the one full-n rebuild writes into the old factor's buffer
+    # (``friedrich_tpu/models/optimizer.py:465``)
+    state, ok = rebuild_cholesky(state.replace(kernel=sub_state.kernel, noise=sub_state.noise),
+                                 reuse_buffer=True)
     if not bool(ok):
         raise CholeskyError()
     return state, iterations
@@ -287,7 +290,10 @@ def fit_parameters(
     if fit_prior:
         state = fit_prior_padded(state)
         if not fit_kernel:
-            state, ok = rebuild_cholesky(state)
+            # the old factor's buffer takes the new factor, so the two never
+            # coexist; on a failed rebuild the old state is lost, as in the
+            # JAX package (``friedrich_tpu/models/optimizer.py:495-505``)
+            state, ok = rebuild_cholesky(state, reuse_buffer=True)
             if not bool(ok):
                 raise CholeskyError()
     if fit_kernel:

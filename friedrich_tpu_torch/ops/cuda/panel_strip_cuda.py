@@ -7,8 +7,11 @@ One launch writes the (cap - j0, B) pre-factor strip of the streamed
 Cholesky's panel at column offset ``j0``: the padded training covariance
 ``K(X[j0:], X[j0:j0+B])`` minus the downdate
 ``L[j0:, :j0] @ L[j0:j0+B, :j0].T``, each element written once. The
-downdate dominates: the kernel is bound by float32 FMA throughput, about
-cap^3 / 3 operations over a factorization (see the source's note).
+downdate dominates, about cap^3 / 3 operations over a factorization. In
+float32 it runs on the tensor cores as three TF32 products of split
+operands (3xTF32, ``wgmma`` fed by TMA, or by ``cp.async`` where the
+capacity is not a multiple of 4); in float64 on the CUDA cores (see the
+source's note).
 
 The wrapper takes CUDA tensors only and raises on anything the kernel does
 not take. Its plain PyTorch version is ``ops/panel_fused.plain_panel_strip``.
@@ -22,6 +25,12 @@ from .build import METHODS, check_launch, library, program
 
 #: Kernel launches made by this wrapper in this process.
 LAUNCHES = 0
+
+#: Relative error of one float32 product a*b formed by the 3xTF32 split,
+#: on top of float32 accumulation: a_lo b_lo is dropped and the low parts
+#: are rounded, 3 * 2^-22 (1 + 2^-11)^2 < 2^-20 (derivation in the source).
+#: The downdate's tolerance adds SPLIT_ERROR * (|L_tail| |L_rows|^T).
+SPLIT_ERROR = 2.0**-20
 
 
 def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,

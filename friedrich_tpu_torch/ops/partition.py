@@ -4,11 +4,13 @@ panel widths."""
 from __future__ import annotations
 
 #: Panel-width target of the streamed factorization when none is given,
-#: snapped to a divisor of the capacity by :func:`pick_block`: the fastest
-#: of the targets 2048, 4096 and 8192 in the sweep of ``chip_smoke.py``
-#: phase 5 at capacity 50,512 on an NVIDIA H100 80GB HBM3 at 700 W
-#: (1.42, 1.39 and 1.53 s; PERF.md).
-DEFAULT_PANEL_TARGET = 4096
+#: snapped to a divisor of the capacity by :func:`pick_block`: of the
+#: targets 1024, 2048, 4096 and 8192 in the sweeps of ``chip_smoke.py``
+#: phases 5b and 5c with the tensor-core panel-strip kernel on an NVIDIA
+#: H100 80GB HBM3 at 700 W, the fastest at capacity 100,512 (4.981, 4.507,
+#: 4.718, 5.139 s) and within the spread of the fastest at 50,512 (0.738,
+#: 0.709, 0.724, 0.805 s; PERF.md).
+DEFAULT_PANEL_TARGET = 2048
 
 
 def pick_block(extent: int, target: int) -> int:

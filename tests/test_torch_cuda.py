@@ -67,25 +67,30 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
 
 # The panel strip: the kernel map as above, plus a downdate of length j0
 # whose two versions sum in different orders, held to its forward-error
-# bound j0 * u * (|L_tail| |L_rows|^T) on top of the map's tolerance.
-@pytest.mark.parametrize("dtype,rtol,atol,unit", [(torch.float32, 2e-5, 2e-5, 2.0**-24),
-                                                  (torch.float64, 0, 1e-12, 2.0**-53)],
-                         ids=["f32", "f64"])
+# bound j0 * u * (|L_tail| |L_rows|^T) on top of the map's tolerance, and in
+# float32 the 3xTF32 split's SPLIT_ERROR * (|L_tail| |L_rows|^T). The
+# columns right of the prefix hold NaN: the kernel must never read them (a
+# reused factor buffer holds an old factor there). Capacity 1,001 is not a
+# multiple of 4: the float32 kernel's cp.async producer feeds it.
+@pytest.mark.parametrize("cap", (1000, 1001))
+@pytest.mark.parametrize("dtype,rtol,atol,unit,split", [
+    (torch.float32, 2e-5, 2e-5, 2.0**-24, pc.SPLIT_ERROR), (torch.float64, 0, 1e-12, 2.0**-53, 0.0)],
+    ids=["f32", "f64"])
 @pytest.mark.parametrize("name", KERNELS)
-def test_panel_strip_matches_plain_version(card, name, dtype, rtol, atol, unit):
+def test_panel_strip_matches_plain_version(card, name, dtype, rtol, atol, unit, split, cap):
     rng = np.random.default_rng(72)
-    cap, n = 1000, 937
+    n = 937
     x = torch.as_tensor(rng.normal(size=(cap, 5)), dtype=dtype, device=card)
     l_full = torch.as_tensor(np.tril(rng.normal(size=(cap, cap)) * 0.1), dtype=dtype, device=card)
     kern = KERNELS[name].to(dtype, card)
-    for j0, block in ((0, 384), (300, 384), (300, 500), (800, 200)):
+    for j0, block in ((0, 384), (300, 384), (300, 500), (801, cap - 801)):
         prefix = l_full.clone()
-        prefix[:, j0:] = 0.0
+        prefix[:, j0:] = float("nan")
         before = pc.LAUNCHES
         got = panel_fused.panel_strip(kern, x[j0:], x[j0:j0 + block], prefix, n, 0.3, j0, block)
         assert pc.LAUNCHES == before + 1
         want = panel_fused.plain_panel_strip(kern, x[j0:], x[j0:j0 + block], prefix, n, 0.3, j0, block)
-        bound = j0 * unit * (prefix[j0:, :j0].abs() @ prefix[j0:j0 + block, :j0].abs().mT)
+        bound = (j0 * unit + split) * (prefix[j0:, :j0].abs() @ prefix[j0:j0 + block, :j0].abs().mT)
         assert bool(((got - want).abs() <= atol + rtol * want.abs() + bound).all())
 
 
@@ -99,6 +104,23 @@ def test_streamed_factor_on_the_card_matches_the_cpu(card):
                                              0.3, block=(500, 300, 500))
     assert bool(ok) and bool(want_ok)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64), ids=["f32", "f64"])
+def test_streamed_factor_into_a_reused_buffer_on_the_card(card, dtype):
+    # an unaligned capacity, and a buffer that holds a factor built at other
+    # hyperparameters: the same factor, bit for bit, as a fresh buffer
+    rng = np.random.default_rng(74)
+    x = torch.as_tensor(rng.normal(size=(1001, 4)), dtype=dtype, device=card)
+    kern = KERNELS["Composite"].to(dtype, card)
+    old, ok_old = streamed_cholesky_factor(tk.SquaredExp(ls=0.5, ampl=2.0).to(dtype, card), x, 950,
+                                           0.4, block=(400, 301, 300))
+    fresh, ok = streamed_cholesky_factor(kern, x, 950, 0.3, block=(400, 301, 300))
+    ptr = old.data_ptr()
+    got, ok_got = streamed_cholesky_factor(kern, x, 950, 0.3, block=(400, 301, 300), l0=old)
+    assert bool(ok_old) and bool(ok) and bool(ok_got)
+    assert got.data_ptr() == ptr
+    assert torch.equal(got, fresh)
 
 
 def test_panel_strip_wrapper_refuses_what_the_kernel_does_not_take(card):

@@ -2,7 +2,8 @@
 plain panel strip (against the JAX strip and, in float32, the Pallas kernel
 in interpret mode), the streamed factorization, the builder flow on the
 streamed backend, the in-place append with its repair, the ``"auto"``
-backend rule, and the knobs that still raise.
+backend rule, the knobs that still raise, the rebuild into the old
+factor's buffer, and the error of the CUDA kernel's 3xTF32 product.
 
 The port runs on the CPU here, where the panel strip is its plain version;
 the CUDA kernel is held against that on the card by ``chip_smoke.py`` and
@@ -11,6 +12,7 @@ the CUDA kernel is held against that on the card by ``chip_smoke.py`` and
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,10 +26,13 @@ import friedrich_tpu_torch as tft
 import friedrich_tpu_torch.kernels as tk
 import friedrich_tpu_torch.priors as tp
 from friedrich_tpu.models import api as japi
+from friedrich_tpu.models import gp as jgp
+from friedrich_tpu.models import optimizer as jopt
 from friedrich_tpu.ops.pallas.panel_fused import fused_panel_strip
 from friedrich_tpu.utils.fitlog import FitLog
 from friedrich_tpu_torch import config
 from friedrich_tpu_torch.models import gp as tgp
+from friedrich_tpu_torch.models import optimizer as topt
 from friedrich_tpu_torch.ops import covariance as tcov
 from friedrich_tpu_torch.ops.cholesky import factor
 from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
@@ -385,3 +390,169 @@ def test_set_panel_block_validates():
         with pytest.raises(tft.ConfigError, match="strictly positive"):
             b.set_panel_block(bad)
     assert b.set_panel_block((1, 1)) is b and b.set_panel_block(None) is b
+
+
+# ---------------------------------------------------------------------------
+# (i): the rebuild into the old factor's buffer
+# ---------------------------------------------------------------------------
+
+
+def _streamed_states(seed, n=300, cap=320, block=128):
+    """The same streamed model in both packages: (jax state, port state, x, y)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 3))
+    y = np.sin(x[:, 0]) + 0.5 * np.cos(2.0 * x[:, 1]) + 0.2 * rng.normal(size=n)
+    jstate, jok = jgp.make_state(jk.Matern2(ls=1.1, ampl=0.8), jp.ConstantPrior(c=0.1), 0.3,
+                                 jnp.asarray(x), jnp.asarray(y), cap=cap, backend="streamed",
+                                 block=block)
+    tstate, tok = tgp.make_state(tk.Matern2(ls=1.1, ampl=0.8), tp.ConstantPrior(c=0.1), 0.3,
+                                 torch.as_tensor(x), torch.as_tensor(y), cap=cap,
+                                 backend="streamed", block=block)
+    assert bool(jok) and bool(tok)
+    return jstate, tstate, x, y
+
+
+@pytest.mark.parametrize("change", ("kernel", "noise"))
+def test_rebuild_into_the_old_buffer_matches_jax(change):
+    jstate, tstate, _, _ = _streamed_states(61)
+    if change == "kernel":
+        jnew = jstate.replace(kernel=jk.Matern2(ls=0.7, ampl=1.4))
+        tnew = tstate.replace(kernel=tk.Matern2(ls=0.7, ampl=1.4))
+    else:
+        jnew = jstate.replace(noise=jnp.asarray(0.45))
+        tnew = tstate.replace(noise=torch.as_tensor(0.45, dtype=torch.float64))
+    # a fresh buffer first: it leaves the state's factor as it is
+    fresh, ok = tgp.rebuild_cholesky(tnew)
+    assert bool(ok) and fresh.l.data_ptr() != tstate.l.data_ptr()
+    old_ptr = tstate.l.data_ptr()
+    # the buffer holds the factor at the old hyperparameters
+    assert not torch.equal(tstate.l, fresh.l)
+    reused, ok = tgp.rebuild_cholesky(tnew, reuse_buffer=True)
+    assert bool(ok)
+    assert reused.l.data_ptr() == old_ptr  # written into the old factor's storage
+    assert torch.equal(reused.l, fresh.l)  # bit for bit a fresh build
+    want, jok = jgp.rebuild_cholesky(jnew, reuse_buffer=True)
+    assert bool(jok)
+    # float64, LAPACK vs XLA summation order through 320 columns
+    np.testing.assert_allclose(reused.l.numpy(), np.asarray(want.l), rtol=0, atol=1e-12)
+
+
+def test_reused_buffer_is_zeroed_first():
+    # columns right of each diagonal block are never written by the loop:
+    # a buffer full of garbage still gives the fresh factor, bit for bit
+    _, tstate, _, _ = _streamed_states(62, n=200, cap=256, block=64)
+    fresh, _ = streamed_cholesky_factor(tstate.kernel, tstate.x, tstate.n, tstate.noise, block=64)
+    junk = torch.full((256, 256), float("nan"), dtype=torch.float64)
+    got, ok = streamed_cholesky_factor(tstate.kernel, tstate.x, tstate.n, tstate.noise, block=64,
+                                       l0=junk)
+    assert bool(ok) and got.data_ptr() == junk.data_ptr()
+    assert torch.equal(got, fresh)
+    with pytest.raises(ValueError, match="factor buffer"):
+        streamed_cholesky_factor(tstate.kernel, tstate.x, tstate.n, tstate.noise, block=64,
+                                 l0=torch.zeros((256, 256), dtype=torch.float32))
+
+
+def test_dense_rebuild_ignores_reuse_buffer():
+    x = torch.as_tensor(np.random.default_rng(63).normal(size=(40, 2)))
+    state, _ = tgp.make_state(tk.SquaredExp(), tp.ZeroPrior(), 0.2, x, x[:, 0], cap=48)
+    new, ok = tgp.rebuild_cholesky(state.replace(noise=torch.as_tensor(0.3, dtype=torch.float64)),
+                                   reuse_buffer=True)
+    assert bool(ok) and new.l.data_ptr() != state.l.data_ptr()
+
+
+@pytest.mark.parametrize("mode", ("prior-only", "subsample"))
+def test_fit_parameters_rebuild_into_the_old_buffer_matches_jax(mode, monkeypatch):
+    # the two host-level rebuilds that reuse the buffer in the JAX package:
+    # the prior-only refit (optimizer.py:503) and the subsampled fit's final
+    # rebuild (optimizer.py:465)
+    jstate, tstate, _, _ = _streamed_states(64)
+    old_ptr = tstate.l.data_ptr()
+    if mode == "prior-only":
+        kwargs = dict(fit_prior=True, fit_kernel=False)
+    else:
+        sub = 120
+        # the JAX fit draws its subset from jax.random; hand the port the same indices
+        jidx = np.sort(np.asarray(jax.random.permutation(jax.random.PRNGKey(0), tstate.n)[:sub]))
+        monkeypatch.setattr(topt, "subset_indices",
+                            lambda n_, s, seed, device: torch.as_tensor(jidx, device=device))
+        kwargs = dict(fit_prior=False, subsample=sub, max_iter=30, convergence_fraction=0.05,
+                      gradient="exact")
+    want = jopt.fit_parameters(jstate, **kwargs)
+    got, _ = topt.fit_parameters(tstate, **kwargs)
+    assert got.l.data_ptr() == old_ptr
+    if mode == "prior-only":
+        np.testing.assert_allclose(got.resid.numpy(), np.asarray(want.resid), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(got.l.numpy(), np.asarray(want.l), rtol=0, atol=1e-12)
+        return
+    # the multiplicative ADAM update compounds float64 rounding (as test_torch_fit.py)
+    jparams = np.concatenate([np.asarray(want.kernel.get_params()), [float(want.noise)]])
+    tparams = np.concatenate([got.kernel.get_params().numpy(), [float(got.noise)]])
+    np.testing.assert_allclose(tparams, jparams, rtol=1e-7)
+    np.testing.assert_allclose(got.l.numpy(), np.asarray(want.l), rtol=1e-7, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# (j): the error of the CUDA kernel's 3xTF32 downdate product
+# ---------------------------------------------------------------------------
+
+
+def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does in the kernel."""
+    bits = a.view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32x3_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` as the float32 kernel forms it: a = a_hi + a_lo, a_hi =
+    tf32(a), a_lo = tf32(a - a_hi), the same for b, and the products
+    a_lo b_hi + a_hi b_lo + a_hi b_hi accumulated in float32."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return a_lo @ b_hi.mT + a_hi @ b_lo.mT + a_hi @ b_hi.mT
+
+
+def test_tf32_rounding_helper():
+    v = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-10 + 2.0**-11, -(1.0 + 2.0**-11), 3.0e-30],
+                     dtype=torch.float32)
+    got = _tf32_rna(v)
+    assert torch.equal(got[:4], torch.tensor([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-9,
+                                              -(1.0 + 2.0**-10)]))  # ties away from zero
+    assert bool(((got.view(torch.int32) & 0x1FFF) == 0).all())  # 13 low bits clear
+
+
+@pytest.mark.parametrize("rows,cols,j0", ((37, 13, 45), (200, 64, 300), (129, 129, 1000),
+                                          (300, 257, 3001)))
+def test_tf32x3_product_within_the_kernel_tolerance(rows, cols, j0):
+    # the downdate L[j0:, :j0] L[j0:j0+B, :j0]^T at ragged shapes, entries of
+    # a factor's size, against the float64 product: within the tolerance that
+    # chip_smoke.py holds the kernel to, j0 u (|L_tail| |L_rows|^T) for the
+    # float32 accumulation plus SPLIT_ERROR (|L_tail| |L_rows|^T) for the split
+    rng = np.random.default_rng(rows + cols + j0)
+    a64 = rng.normal(size=(rows, j0)) * rng.uniform(0.01, 1.0, size=(rows, 1))
+    b64 = rng.normal(size=(cols, j0)) * 0.1
+    a32, b32 = torch.as_tensor(a64, dtype=torch.float32), torch.as_tensor(b64, dtype=torch.float32)
+    exact = a32.double() @ b32.double().mT  # the product of the float32 inputs
+    abs_prod = a32.double().abs() @ b32.double().abs().mT
+    bound = (j0 * 2.0**-24 + panel_strip_cuda.SPLIT_ERROR) * abs_prod
+    err = (_tf32x3_product(a32, b32).double() - exact).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def test_tf32x3_split_error_per_product():
+    # one product at a time, in float64 (no accumulation error): the split
+    # loses at most SPLIT_ERROR |a b|, more than float32 rounding does, and
+    # far less than TF32 alone (one product of the high parts)
+    rng = np.random.default_rng(65)
+    a = torch.as_tensor(rng.normal(size=200_000) * 10.0 ** rng.uniform(-3, 3, size=200_000),
+                        dtype=torch.float32)
+    b = torch.as_tensor(rng.normal(size=200_000), dtype=torch.float32)
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    d = lambda t: t.double()
+    got = d(a_lo) * d(b_hi) + d(a_hi) * d(b_lo) + d(a_hi) * d(b_hi)
+    rel = ((got - d(a) * d(b)).abs() / (d(a) * d(b)).abs())
+    assert float(rel.max()) <= panel_strip_cuda.SPLIT_ERROR
+    assert float(rel.max()) > 2.0**-24
+    rel_tf32 = ((d(a_hi) * d(b_hi) - d(a) * d(b)).abs() / (d(a) * d(b)).abs())
+    assert float(rel_tf32.max()) > 2**7 * panel_strip_cuda.SPLIT_ERROR
