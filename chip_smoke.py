@@ -7,19 +7,27 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each of which fails loudly (non-zero exit, no result line):
 
 1. environment: card name and power limit, torch and CUDA versions, float32
-   matmuls in full precision, and the build of the covariance-tile kernel
-   from ``friedrich_tpu_torch/csrc/`` with ``nvcc`` (timed);
-2. the kernel against its plain PyTorch version on the card, for the nine
-   kernels plus Sum, Prod and a deeper composition, in train and cross
-   mode, float32 and float64, every distance method, at ragged shapes;
+   matmuls in full precision, and the build of the kernels from
+   ``friedrich_tpu_torch/csrc/`` with ``nvcc`` (timed), with each
+   instantiation's registers and spills (a spilling covariance-kernel
+   instantiation fails);
+2. the covariance kernel against its plain PyTorch version on the card, for
+   the nine kernels (each its own compiled-in map) plus Sum, Prod and a
+   deeper composition (the interpreter), in train mode (whole matrix and a
+   strip across the diagonal) and cross mode, float32 and float64, every
+   distance method, at ragged shapes: capacities 1,000 and 1,001 and 333
+   queries (rows not 16-byte aligned);
 3. parity of the port on the card against the port on the CPU: the demo
    flow and a builder fit at n=512, d=3, float64;
 4. the full-width main path: ``bench.py``'s north-star flow on the dense
    backend at n=50,000, d=8, float32 — sub-fit at 8,192, one 50,512-capacity
    build and factor, a 4,096-query ``predict_in_batches``, a 512-point
    ``add_samples`` and ``sample_at`` 64 points — with the kernel's launches
-   counted over that run, then the kernel held against the plain version on
-   4,096-row strips of the 50,512^2 matrix and timed at the main-path shapes;
+   counted over that run (in all and by shape), then the kernel held against
+   the plain version on 4,096-row strips of the 50,512^2 matrix and timed
+   at each main-path shape beside its bound and its launches on the flow
+   (train 8,192^2 and 50,512^2, cross 50,512 x 4,096), and on the Composite
+   tree at 50,512^2;
 5. the streamed backend: the panel-strip kernel against its plain version at
    ragged shapes (the nine kernels plus Sum, Prod and a composition, every
    distance method, float32 and float64); the streamed against the dense
@@ -27,7 +35,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    hyperparameters, and a sweep of panel widths; the same north-star flow on
    the streamed backend at n=100,000 (capacity 100,512), with both kernels'
    launches counted over that run and its peak memory held below two
-   factors; then the panel-strip kernel against its plain version on three
+   factors; the covariance kernel timed on its cross 100,512 x 4,096; then
+   the panel-strip kernel against its plain version on three
    panels of the final factor, and timed on the middle one beside its bound,
    its plain version and the downdate alone as one ``torch.addmm``; last, a
    panel-width sweep at 100,512 and a ``torch.profiler`` breakdown (device
@@ -48,6 +57,7 @@ JSON line describing each kernel, and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import re
 import statistics
@@ -142,6 +152,44 @@ def test_kernels():
     }
 
 
+def ptxas_table(report: str) -> dict:
+    """Registers, static shared memory and spill stores of each kernel
+    instantiation in the ``-Xptxas -v`` report, by readable name: the
+    covariance kernel by dtype, method and map (a leaf, or the program
+    interpreter), the panel-strip kernels by their template arguments."""
+    from friedrich_tpu_torch.ops.cuda import build
+
+    maps = {str(op): cls.__name__ for cls, op in build.OPCODES.items()}
+    maps["n1"] = "program"
+    methods = {str(v): k for k, v in build.METHODS.items()}
+    dtypes = {"f": "float", "d": "double"}
+    table: dict = {}
+    entry, spill = None, 0
+    for line in report.splitlines():  # each entry function, its spills, its "Used N registers"
+        m = re.search(r"Compiling entry function '\w*?\d+cov_kernel\w*?I([fd])Li(\d+)ELi(n?\d+)E", line)
+        if m:
+            entry = f"cov_kernel<{dtypes[m.group(1)]},{methods[m.group(2)]},{maps[m.group(3)]}>"
+            spill = 0
+            continue
+        m = re.search(r"Compiling entry function '\w*?\d+(panel_strip_kernel|"
+                      r"panel_strip_tf32x3_kernel)I(\w*?)EEv", line)
+        if m:
+            args = (m.group(2).replace("Lb1E", ",tma").replace("Lb0E", ",cp.async")
+                    .replace("Li", "").replace("E", "").replace("f", "float,").replace("d", "double,"))
+            entry = f"{m.group(1)}<{args.replace(',,', ',').strip(',')}>"
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            spill = max(spill, int(m.group(1)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and entry:
+            table[entry] = {"registers": int(m.group(1)), "static_smem_bytes": int(m.group(2)),
+                            "spill_stores": spill}
+            entry = None
+    return table
+
+
 def phase_environment() -> None:
     import torch
 
@@ -159,23 +207,14 @@ def phase_environment() -> None:
     t0 = time.perf_counter()
     path, report = build.build()
     build_s = time.perf_counter() - t0
-    per_kernel: dict = {}
-    entry = None
-    for line in report.splitlines():  # each entry function, then its "Used N registers"
-        m = re.search(r"Compiling entry function '\w*?\d+(cov_kernel|panel_strip_kernel|"
-                      r"panel_strip_tf32x3_kernel)I(\w*?)EEv", line)
-        if m:
-            args = (m.group(2).replace("Lb1E", ",tma").replace("Lb0E", ",cp.async")
-                    .replace("Li", "").replace("E", "").replace("f", "float,").replace("d", "double,"))
-            entry = f"{m.group(1)}<{args.replace(',,', ',').strip(',')}>"
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if m and entry:
-            per_kernel[entry] = {"registers": int(m.group(1)), "static_smem_bytes": int(m.group(2))}
-            entry = None
+    per_kernel = ptxas_table(report)
     spills = sorted({int(s) for s in re.findall(r"(\d+) bytes spill stores", report)})
     log(f"kernel build (every csrc/*.cu, one nvcc each, in parallel): {build_s} s -> {path.name}; "
         f"spill stores (bytes) {spills}")
     log(json.dumps({"ptxas": per_kernel}))
+    spilled = [k for k, v in per_kernel.items() if k.startswith("cov_kernel") and v["spill_stores"]]
+    if spilled:
+        fail(f"covariance-kernel instantiations spill: {spilled}")
     for line in report.splitlines():  # ptxas's own warnings, e.g. a serialized wgmma
         if "warning" in line.lower() or "performance loss" in line.lower():
             log("ptxas:", line.strip())
@@ -189,9 +228,11 @@ def phase_kernel_vs_plain() -> None:
 
     log("== phase 2: covariance kernel against its plain version")
     rng = np.random.default_rng(7)
-    m1, n, mq, noise = 1000, 937, 333, 0.3
+    # capacity 1,001: rows not 16-byte aligned (m2 % 4 != 0), the masked
+    # scalar stores; 333 queries likewise in cross mode
+    caps, n, mq, noise = (1000, 1001), 937, 333, 0.3
     worst, launches = {}, {}
-    for d in (1, 8):
+    for d, m1 in itertools.product((1, 8), caps):
         x_np = rng.normal(size=(m1, d))
         q_np = rng.normal(size=(mq, d))
         for dtype in (torch.float32, torch.float64):
@@ -225,12 +266,12 @@ def phase_kernel_vs_plain() -> None:
                     }
                     torch.cuda.synchronize()
                     for mode, (got, want) in cases.items():
+                        what = f"{name} {mode} {method} d={d} m1={m1} {dtype}"
                         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-                            fail(f"{name} {mode} {method} d={d} {dtype}: shape or non-finite")
+                            fail(f"{what}: shape or non-finite")
                         err = float((got - want).abs().max())
                         if not excess(got, want, atol, rtol) <= 0:
-                            fail(f"{name} {mode} {method} d={d} {dtype}: max error {err} "
-                                 f"beyond atol {atol} + rtol {rtol}")
+                            fail(f"{what}: max error {err} beyond atol {atol} + rtol {rtol}")
                         key = (name, "f32" if dtype == torch.float32 else "f64")
                         worst[key] = max(worst.get(key, 0.0), err)
                 launches[name] = launches.get(name, 0) + covariance_cuda.LAUNCHES - before
@@ -240,7 +281,7 @@ def phase_kernel_vs_plain() -> None:
         for name in test_kernels()
     ]
     log(json.dumps({"parity": table,
-                    "shapes": f"{m1} rows, live n {n}, {mq} queries, d in (1, 8)"}))
+                    "shapes": f"{caps} rows, live n {n}, {mq} queries, d in (1, 8)"}))
 
 
 _NUM = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
@@ -287,13 +328,20 @@ def phase_parity() -> None:
     torch.cuda.empty_cache()
 
 
-def bound_ms(m1: int, m2: int, d: int, itemsize: int, flops_per_s: float) -> tuple[float, str]:
+#: Operations per entry of the maps timed at full width besides the dot
+#: product (exp, pow and sqrt counted as one): the squared-exponential's
+#: distance and map, and the Composite tree's distance, sqrt, four leaves
+#: and three combinators.
+MAP_OPS = {"SquaredExp": 9, "Composite": 22}
+
+
+def bound_ms(m1: int, m2: int, d: int, itemsize: int, flops_per_s: float,
+             map_ops: int = MAP_OPS["SquaredExp"]) -> tuple[float, str]:
     """Least time for one launch: inputs read once and output written
-    once over HBM bandwidth, against 2d + 9 operations per entry (dot
-    product, distance, squared-exponential map with exp counted as one)
+    once over HBM bandwidth, against 2d + ``map_ops`` operations per entry
     plus 2d per row norm, over the peak rate for the dtype."""
     nbytes = ((m1 + m2) * d + m1 * m2) * itemsize
-    ops = m1 * m2 * (2 * d + 9) + 2 * d * (m1 + m2)
+    ops = m1 * m2 * (2 * d + map_ops) + 2 * d * (m1 + m2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -313,6 +361,46 @@ def bench_data(n: int):
     y_add = (np.sin(2.5 * x_add[:, 0]) + 0.5 * np.cos(2.0 * x_add[:, 1])).astype(np.float32)
     x_sample = rng.normal(size=(M_SAMPLE, D)).astype(np.float32)
     return x, y, xq, x_add, y_add, x_sample
+
+
+def launch_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``reps``
+    calls issued back to back after a warm-up, over ``reps``; the median
+    of three such runs. ``fn`` must not wait for the device."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def shape_time(label: str, kernel, x1, x2, n: int, train: bool, noise, by_shape) -> dict:
+    """B1 at one main-path shape: its device time per launch, its bound and
+    its launches at that shape on the flow (``by_shape``, the wrapper's
+    ``LAUNCHES_BY_SHAPE`` over the flow). The kernel's parameters are
+    copied to the host first: read from the card, each launch would wait
+    for their copy."""
+    import torch
+
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda
+
+    m1, m2 = x1.shape[0], x2.shape[0]
+    kernel, noise = kernel.to(x1.dtype, "cpu"), float(noise) if train else 0.0
+    ms = launch_ms(lambda: covariance_cuda.covariance(kernel, x1, x2, n, noise, train=train))
+    torch.cuda.empty_cache()
+    map_ops = MAP_OPS["Composite" if label.startswith("Composite") else "SquaredExp"]
+    bound, by = bound_ms(m1, m2, x1.shape[1], x1.element_size(), FP32_FLOPS, map_ops)
+    return {"shape": label, "ms": ms, "bound_ms": bound, "bound_by": by, "ms_over_bound": ms / bound,
+            "launches_on_flow": 0 if label.startswith("Composite") else by_shape.get((m1, m2, train), 0)}
 
 
 def phase_full_width(n: int) -> tuple[dict, tuple]:
@@ -343,6 +431,7 @@ def phase_full_width(n: int) -> tuple[dict, tuple]:
 
     # ---- the main path; the kernel's launches are counted over this run only
     covariance_cuda.LAUNCHES = 0
+    covariance_cuda.LAUNCHES_BY_SHAPE.clear()
     t_start = sync()
     builder = (
         ft.GaussianProcessBuilder(x, y, device="cuda")
@@ -365,6 +454,7 @@ def phase_full_width(n: int) -> tuple[dict, tuple]:
     t_sample = sync() - t0
     t_total = sync() - t_start
     launches = covariance_cuda.LAUNCHES
+    by_shape = dict(covariance_cuda.LAUNCHES_BY_SHAPE)
     # ---- end of the main path
 
     if launches <= 0:
@@ -387,7 +477,9 @@ def phase_full_width(n: int) -> tuple[dict, tuple]:
         "predict_in_batches_s": t_predict, "add_samples_s": t_add,
         "sample_at_s": t_sample, "total_s": t_total,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches, "lml_start": lml0, "lml_fitted": lml,
+        "launches": launches, "launches_by_shape": {f"{k[0]}x{k[1]}{' train' if k[2] else ''}": v
+                                                    for k, v in by_shape.items()},
+        "lml_start": lml0, "lml_fitted": lml,
         "ls": float(gp.kernel.ls), "ampl": float(gp.kernel.ampl), "noise": gp.noise,
         "var_min": float(var.min()), "mean_abs_max": float(mean.abs().max()),
     }
@@ -421,34 +513,41 @@ def phase_full_width(n: int) -> tuple[dict, tuple]:
         fail(f"kernel differs from the plain version at full width: max error {max_err} "
              f"beyond atol {ATOL_F32} + rtol {RTOL_F32}")
 
-    # ---- times at the main-path shapes
-    train_ms = cuda_ms(lambda: covariance_cuda.covariance(kernel, x_pad, x_pad, n_live, noise, train=True))
-    cross_ms = cuda_ms(lambda: covariance_cuda.covariance(kernel, x_pad, xq_t, n_live))
-    cross_plain_ms = cuda_ms(lambda: cov.plain_cross_covariance_train_padded(kernel, x_pad, n_live, xq_t))
+    # ---- times at the main-path shapes, each beside its bound and its
+    # launches on the flow; the Composite tree (the interpreter) for reference
+    sub = min(8192, n // 2)
+    composite = test_kernels()["Composite"].to(torch.float32, x_pad.device)
+    cases = {
+        f"train {sub}^2": (kernel, x_pad[:sub], x_pad[:sub], sub, True),
+        f"train {cap}^2": (kernel, x_pad, x_pad, n_live, True),
+        f"cross {cap} x {m}": (kernel, x_pad, xq_t, n_live, False),
+        f"Composite train {cap}^2": (composite, x_pad, x_pad, n_live, True),
+    }
+    shapes = [shape_time(label, *case, noise, by_shape) for label, case in cases.items()]
+    shapes[0]["plain_ms"] = cuda_ms(lambda: cov.plain_train_covariance_padded(kernel, x_pad[:sub], sub, noise))
+    shapes[2]["plain_ms"] = cuda_ms(lambda: cov.plain_cross_covariance_train_padded(kernel, x_pad, n_live, xq_t))
     torch.cuda.empty_cache()
-    train_plain_ms = cuda_ms(lambda: cov.plain_train_covariance_padded(kernel, x_pad, n_live, noise), reps=3)
-    train_bound, train_by = bound_ms(cap, cap, d, 4, FP32_FLOPS)
-    cross_bound, _ = bound_ms(cap, m, d, 4, FP32_FLOPS)
-    log(f"covariance kernel train {cap}^2 f32: {train_ms} ms (plain {train_plain_ms} ms, "
-        f"bound {train_bound} ms by {train_by}); cross {cap} x {m}: {cross_ms} ms "
-        f"(plain {cross_plain_ms} ms, bound {cross_bound} ms)")
+    shapes[1]["plain_ms"] = cuda_ms(lambda: cov.plain_train_covariance_padded(kernel, x_pad, n_live, noise),
+                                    reps=3)
+    torch.cuda.empty_cache()
+    for entry in shapes:
+        entry["flow"] = f"dense, n={n}"
+    log(json.dumps({"covariance_tile_times": shapes}))
+    main = shapes[1]
     return {
         "name": "covariance_tile",
         "route": "cuda",
-        "source": "friedrich_tpu_torch/csrc/covariance.cu",
+        "source": "friedrich_tpu_torch/csrc/covariance.cuh",
         "replaces": "friedrich_tpu/ops/pallas/covariance_pallas.py:105",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": train_ms,
-        "plain_ms": train_plain_ms,
-        "bound_ms": train_bound,
-        "bound_by": train_by,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
         "library_ms": None,
-        "shape": f"train {cap}x{cap} d={d} float32",
-        "cross_shape": f"cross {cap}x{m} d={d} float32",
-        "cross_ms": cross_ms,
-        "cross_plain_ms": cross_plain_ms,
-        "cross_bound_ms": cross_bound,
+        "shape": f"{main['shape']} d={d} float32, SquaredExp (compiled-in map)",
+        "shapes": shapes,
     }, fitted
 
 
@@ -638,7 +737,7 @@ def phase_streamed_vs_dense(fitted, n: int) -> dict:
     return out
 
 
-def phase_streamed_full_width(n: int) -> tuple[dict, tuple]:
+def phase_streamed_full_width(n: int) -> tuple[dict, tuple, dict]:
     import torch
 
     import friedrich_tpu_torch as ft
@@ -674,6 +773,7 @@ def phase_streamed_full_width(n: int) -> tuple[dict, tuple]:
 
     # ---- the main path; both kernels' launches are counted over this run only
     covariance_cuda.LAUNCHES = 0
+    covariance_cuda.LAUNCHES_BY_SHAPE.clear()
     panel_strip_cuda.LAUNCHES = 0
     t_start = sync()
     builder = (
@@ -696,6 +796,7 @@ def phase_streamed_full_width(n: int) -> tuple[dict, tuple]:
     t_sample = sync() - t0
     t_total = sync() - t_start
     b1_launches = covariance_cuda.LAUNCHES
+    b1_by_shape = dict(covariance_cuda.LAUNCHES_BY_SHAPE)
     b2_launches = panel_strip_cuda.LAUNCHES
     # ---- end of the main path
 
@@ -742,6 +843,10 @@ def phase_streamed_full_width(n: int) -> tuple[dict, tuple]:
     kernel, noise, n_live, x_pad, l_full = state.kernel, state.noise, state.n, state.x, state.l
     del gp, state, mean, var, draw, builder
     torch.cuda.empty_cache()
+    b1_cross = shape_time(f"cross {cap} x {M_QUERIES}", kernel, x_pad, torch.as_tensor(xq, device="cuda"),
+                          n_live, False, noise, b1_by_shape)
+    b1_cross["flow"] = f"streamed, n={n}"
+    log(json.dumps({"covariance_tile_times": [b1_cross]}))
     starts = np.cumsum((0,) + widths[:-1])
     max_err = 0.0
     split = panel_strip_cuda.SPLIT_ERROR
@@ -840,7 +945,7 @@ def phase_streamed_full_width(n: int) -> tuple[dict, tuple]:
         "library_tf32_ms": library_tf32_ms,
         "build_device_s": profile.get("panel_strip_device_s"),
         "shape": f"panel j0={j0} B={block} of capacity {cap}, rest {rest}, d={D}, float32",
-    }, fitted
+    }, fitted, b1_cross
 
 
 def phase_refit(fitted, n: int) -> dict:
@@ -919,7 +1024,8 @@ def main() -> int:
     phase_streamed_vs_dense(fitted, args.n)
     del fitted
     torch.cuda.empty_cache()
-    streamed_entry, fitted = phase_streamed_full_width(args.streamed_n)
+    streamed_entry, fitted, b1_cross = phase_streamed_full_width(args.streamed_n)
+    entry["shapes"].append(b1_cross)
     torch.cuda.empty_cache()
     phase_refit(fitted, args.streamed_n)
     log(smi_line())

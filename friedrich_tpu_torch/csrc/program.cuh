@@ -1,5 +1,6 @@
 // The kernel-map interpreter shared by the hand-written CUDA kernels
-// (covariance.cu, panel_strip.cu).
+// (covariance.cuh, panel_strip.cu), and the compiled-in map of a single
+// leaf (leaf_map, the covariance kernel's).
 //
 // The Pallas bodies re-traced the kernel's pointwise map for every Sum/Prod
 // tree. Here the host encodes the tree into a postfix program (one opcode
@@ -135,6 +136,51 @@ __device__ __noinline__ T eval_program(int n_ops, const int* ops,
                                        const int* offs, const T* prm, T dot,
                                        T sq, T dist) {
   return run_program<T>(n_ops, ops, offs, prm, dot, sq, dist);
+}
+
+// The map of a kernel that is a single leaf, compiled into the covariance
+// kernel (covariance.cuh) instead of interpreted. The formulas of
+// run_program in the same order of operations, except that each quotient
+// of parameters is one constant c[], computed once per launch on the host
+// in float64 (ops/cuda/build.py: leaf_constants):
+//   SQEXP, EXPONENTIAL  c = (|ampl|, -1 / (2 ls^2))
+//   MATERN1             c = (|ampl|, sqrt(3) / |ls|)
+//   MATERN2             c = (|ampl|, sqrt(5) / |ls|, 5 / (3 ls^2))
+//   RATQUAD             c = (-alpha, 1 / (2 alpha ls^2))
+//   the others          c = their parameters, in PARAM_FIELDS order.
+template <int OP, typename T>
+__device__ __forceinline__ T leaf_map(const T* c, T dot, T sq, T dist) {
+  if constexpr (OP == OP_LINEAR) {
+    return dot + c[0];
+  } else if constexpr (OP == OP_POLYNOMIAL) {
+    return m_pow(c[0] * dot + c[1], c[2]);
+  } else if constexpr (OP == OP_SQEXP) {
+    return c[0] * m_exp(sq * c[1]);
+  } else if constexpr (OP == OP_EXPONENTIAL) {
+    return c[0] * m_exp(dist * c[1]);
+  } else if constexpr (OP == OP_MATERN1) {
+    const T x = dist * c[1];
+    return c[0] * (T(1) + x) * m_exp(-x);
+  } else if constexpr (OP == OP_MATERN2) {
+    const T x = dist * c[1];
+    return c[0] * (T(1) + x + dist * dist * c[2]) * m_exp(-x);
+  } else if constexpr (OP == OP_HYPERTAN) {
+    return m_tanh(c[0] * dot + c[1]);
+  } else if constexpr (OP == OP_MULTIQUADRIC) {
+    return m_hypot(sq, c[0]);
+  } else {
+    static_assert(OP == OP_RATQUAD, "leaf_map takes a leaf opcode");
+    return m_pow(T(1) + sq * c[1], c[0]);
+  }
+}
+
+// The features leaf_map<OP> reads (enum Need).
+template <int OP>
+__host__ __device__ constexpr int leaf_needs() {
+  return (OP == OP_LINEAR || OP == OP_POLYNOMIAL || OP == OP_HYPERTAN) ? NEED_DOT
+         : (OP == OP_SQEXP || OP == OP_MULTIQUADRIC || OP == OP_RATQUAD)
+             ? NEED_SQ
+             : NEED_SQ | NEED_DIST;
 }
 
 }  // namespace

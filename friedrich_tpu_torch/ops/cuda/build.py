@@ -9,13 +9,17 @@ header and the flags. The library is built at first use and loaded with
 
 The kernel map of a covariance function travels to the kernels as a
 postfix program (:func:`encode_program`, ``struct CovProgram`` in
-``csrc/program.cuh``) passed by value in the launch.
+``csrc/program.cuh``) passed by value in the launch. The covariance-tile
+kernel compiles in the map of a kernel that is a single leaf instead
+(:func:`kernel_map`): the wrapper picks that leaf's instantiation and
+passes its constants (``struct LeafConsts``, ``csrc/covariance.cuh``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -54,6 +58,10 @@ OPCODES = {
 }
 OP_ADD = 9
 OP_MUL = 10
+
+#: ``map`` of a covariance-kernel launch that interprets the program
+#: (``MAP_PROGRAM`` in csrc/covariance.cuh); a leaf's map is its opcode.
+MAP_PROGRAM = -1
 
 METHODS = {"gram": 0, "gram_bf16": 1, "direct": 2}
 _NEED_BITS = {DOT: 1, SQDIST: 2, DIST: 4}
@@ -111,6 +119,42 @@ def encode_program(kernel) -> tuple[list[int], list[int], list[float]]:
             f"(max {MAX_PARAMS})"
         )
     return ops, offs, params
+
+
+class LeafConstants(ctypes.Structure):
+    """``struct LeafConsts`` of ``csrc/covariance.cuh``."""
+
+    _fields_ = [("c", ctypes.c_double * 4)]
+
+
+def leaf_constants(op: int, params: list[float]) -> list[float]:
+    """The constants of a leaf's compiled-in map (``leaf_map`` in
+    ``csrc/program.cuh``), from its parameters in ``PARAM_FIELDS`` order:
+    each quotient of parameters computed here, once per launch, in
+    float64."""
+    if op in (OPCODES[SquaredExp], OPCODES[Exponential]):
+        ls, ampl = params
+        return [abs(ampl), -1.0 / (2.0 * ls * ls)]
+    if op == OPCODES[Matern1]:
+        ls, ampl = params
+        return [abs(ampl), math.sqrt(3.0) / abs(ls)]
+    if op == OPCODES[Matern2]:
+        ls, ampl = params
+        return [abs(ampl), math.sqrt(5.0) / abs(ls), 5.0 / (3.0 * ls * ls)]
+    if op == OPCODES[RationalQuadratic]:
+        alpha, ls = params
+        return [-alpha, 1.0 / (2.0 * alpha * ls * ls)]
+    return list(params)
+
+
+def kernel_map(kernel) -> tuple[int, list[float]]:
+    """The map a covariance-kernel launch runs: a single leaf's opcode and
+    its :func:`leaf_constants`, or ``MAP_PROGRAM`` (no constants) for a
+    Sum/Prod tree, which the kernel interprets."""
+    op = OPCODES.get(type(kernel))
+    if op is None:
+        return MAP_PROGRAM, []
+    return op, leaf_constants(op, [float(getattr(kernel, f)) for f in kernel.PARAM_FIELDS])
 
 
 def program(kernel) -> tuple[Program, int]:
@@ -192,7 +236,7 @@ def library():
             fn.argtypes = [
                 ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ll, ll, ctypes.c_double, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, Program, ptr,
+                ctypes.c_int, ctypes.c_int, LeafConstants, Program, ptr,
             ]
             fn.restype = ctypes.c_int
         for fn in (lib.friedrich_panel_strip_f32, lib.friedrich_panel_strip_f64):

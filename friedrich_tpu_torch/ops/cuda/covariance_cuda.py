@@ -1,10 +1,12 @@
 """Wrapper of the hand-written CUDA covariance-tile kernel
-(``friedrich_tpu_torch/csrc/covariance.cu``), the port of the Pallas kernel
+(``friedrich_tpu_torch/csrc/covariance.cuh``), the port of the Pallas kernel
 ``friedrich_tpu/ops/pallas/covariance_pallas.py:_cov_pallas``.
 
 The kernel is built and loaded by :mod:`.build`, with the other kernels of
-``csrc/``; the kernel map travels as a postfix program
-(:func:`~.build.encode_program`) passed by value in the launch.
+``csrc/``. A kernel that is a single leaf launches the instantiation with
+that leaf's map compiled in, its constants passed by value
+(:func:`~.build.kernel_map`); a Sum/Prod tree launches the one that
+interprets its postfix program (:func:`~.build.encode_program`).
 
 The wrapper takes CUDA tensors only; it raises on anything the kernel does
 not take. Its plain PyTorch version is ``ops/covariance.py``'s
@@ -13,12 +15,20 @@ not take. Its plain PyTorch version is ``ops/covariance.py``'s
 
 from __future__ import annotations
 
+import ctypes
+from collections import Counter
+
 import torch
 
-from .build import METHODS, OP_ADD, OP_MUL, check_launch, encode_program, library, program  # noqa: F401
+from .build import (  # noqa: F401
+    MAP_PROGRAM, METHODS, OP_ADD, OP_MUL, LeafConstants, Program, check_launch, encode_program,
+    kernel_map, library, program,
+)
 
 #: Kernel launches made by this wrapper in this process.
 LAUNCHES = 0
+#: The same launches by ``(m1, m2, train)``.
+LAUNCHES_BY_SHAPE: Counter = Counter()
 
 
 def covariance(kernel, x1: torch.Tensor, x2: torch.Tensor, n: int, noise=0.0,
@@ -58,20 +68,20 @@ def covariance(kernel, x1: torch.Tensor, x2: torch.Tensor, n: int, noise=0.0,
     m2 = x2.shape[0]
     if max(m1, m2, d) >= 2**31:
         raise ValueError("covariance kernel takes sizes below 2**31")
-    if m1 > 65535 * 64:
-        raise ValueError(f"covariance kernel takes at most {65535 * 64} rows, got {m1}")
     out = torch.empty((m1, m2), dtype=x1.dtype, device=x1.device)
     if m1 == 0 or m2 == 0:
         return out
-    prog, needs = program(kernel)
+    op, consts = kernel_map(kernel)
+    prog, needs = program(kernel) if op == MAP_PROGRAM else (Program(), 0)
     lib = library()
     fn = lib.friedrich_cov_f32 if x1.dtype == torch.float32 else lib.friedrich_cov_f64
     stream = torch.cuda.current_stream(x1.device).cuda_stream
     err = fn(
         x1.data_ptr(), x2.data_ptr(), out.data_ptr(), m1, m2, d,
         int(row0), int(n), float(noise), int(bool(train)), METHODS[method],
-        needs, prog, stream,
+        needs, op, LeafConstants((ctypes.c_double * 4)(*consts)), prog, stream,
     )
     check_launch(err, "covariance kernel")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(m1, m2, bool(train))] += 1
     return out

@@ -1,5 +1,6 @@
-"""Covariance builders of the PyTorch port against the JAX package, and the
-postfix kernel program that the CUDA covariance kernel runs.
+"""Covariance builders of the PyTorch port against the JAX package, the
+postfix kernel program that the CUDA covariance kernel interprets, and the
+single-leaf maps it compiles in.
 
 The port runs on the CPU here, so its dispatchers use the plain builders
 (``ops/covariance.py``); the CUDA kernel itself is held against them on
@@ -15,12 +16,14 @@ from jax.experimental.pallas import tpu as pltpu
 import friedrich_tpu.kernels as jk
 import friedrich_tpu_torch.kernels as tk
 from friedrich_tpu.ops import covariance as jcov
+from friedrich_tpu.ops import distance as jdist
 from friedrich_tpu.ops.pallas.covariance_pallas import (
     cross_covariance_train_pallas,
     train_covariance_pallas,
 )
 from friedrich_tpu_torch import config
 from friedrich_tpu_torch.ops import covariance as tcov
+from friedrich_tpu_torch.ops.cuda import build
 from friedrich_tpu_torch.ops.cuda import covariance_cuda as cc
 from friedrich_tpu_torch.ops.distance import DIST, DOT, SQDIST
 from friedrich_tpu_torch.utils.errors import ConfigError
@@ -141,7 +144,7 @@ SQRT3, SQRT5 = 3.0**0.5, 5.0**0.5
 
 
 def _leaf(op, p, dot, sq, dist):
-    """The leaf formulas of ``eval_program`` in csrc/covariance.cu."""
+    """The leaf formulas of ``run_program`` in csrc/program.cuh."""
     if op == 0:
         return dot + p[0]
     if op == 1:
@@ -207,6 +210,72 @@ def test_program_layout_and_limits():
         deep = deep + se
     with pytest.raises(ConfigError, match="too large"):
         cc.encode_program(deep)
+
+
+# -- the compiled-in map of a single leaf -------------------------------------
+
+LEAF_IDS = KERNEL_IDS[:9]
+
+
+def _leaf_map(op, c, dot, sq, dist):
+    """The leaf formulas of ``leaf_map`` in csrc/program.cuh, on the
+    constants of ``build.leaf_constants``."""
+    if op == 0:
+        return dot + c[0]
+    if op == 1:
+        return (c[0] * dot + c[1]) ** c[2]
+    if op == 2:
+        return c[0] * np.exp(sq * c[1])
+    if op == 3:
+        return c[0] * np.exp(dist * c[1])
+    if op == 4:
+        x = dist * c[1]
+        return c[0] * (1.0 + x) * np.exp(-x)
+    if op == 5:
+        x = dist * c[1]
+        return c[0] * (1.0 + x + dist * dist * c[2]) * np.exp(-x)
+    if op == 6:
+        return np.tanh(c[0] * dot + c[1])
+    if op == 7:
+        return np.hypot(sq, c[0])
+    if op == 8:
+        return (1.0 + sq * c[1]) ** c[0]
+    raise AssertionError(f"unknown opcode {op}")
+
+
+@pytest.mark.parametrize("case", KERNELS, ids=KERNEL_IDS)
+def test_kernel_map_selects_the_leaf_or_the_interpreter(case):
+    # a single leaf launches its own instantiation (its opcode); a tree the
+    # interpreter, with no constants
+    name, _, tker = case
+    op, consts = cc.kernel_map(tker)
+    if name in LEAF_IDS:
+        assert op == build.OPCODES[type(tker)] == cc.encode_program(tker)[0][0]
+        assert 1 <= len(consts) <= 4
+    else:
+        assert (op, consts) == (cc.MAP_PROGRAM, [])
+
+
+@pytest.mark.parametrize("case", KERNELS[:9], ids=LEAF_IDS)
+def test_leaf_constants_give_the_jax_map(case):
+    # the host's float64 constants (1 / (2 ls^2) and the like) in the
+    # compiled-in formulas against the JAX package's pointwise map on the
+    # same features, pairwise and diagonal, at float64 rounding; a negative
+    # ls and ampl, as the multiplicative ADAM may leave them, included
+    _, jker, tker = case
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(40, 5))
+    feats = jdist.pairwise_features(jnp.asarray(x), jnp.asarray(x[:30]), frozenset({DOT, SQDIST, DIST}))
+    dfeats = jdist.diag_features(jnp.asarray(x), frozenset({DOT, SQDIST, DIST}))
+    for flip in (1.0, -1.0):
+        signs = {f: (flip if f in ("ls", "ampl") else 1.0) for f in tker.PARAM_FIELDS}
+        jk_ = type(jker)(**{f: signs[f] * float(getattr(jker, f)) for f in jker.PARAM_FIELDS})
+        tk_ = type(tker)(**{f: signs[f] * float(getattr(tker, f)) for f in tker.PARAM_FIELDS})
+        op, consts = cc.kernel_map(tk_)
+        for fs in (feats, dfeats):
+            f = {k: np.asarray(v) for k, v in fs.items()}
+            got = _leaf_map(op, consts, f[DOT], f[SQDIST], f[DIST])
+            np.testing.assert_allclose(got, np.asarray(jk_.pointwise(fs)), rtol=1e-14, atol=1e-14)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -54,6 +54,46 @@ def test_kernel_matches_plain_version(card, name, dtype, rtol, atol):
     assert cc.LAUNCHES == before + 2
 
 
+LEAVES = {
+    "Linear": tk.Linear(c=0.4),
+    "Polynomial": tk.Polynomial(alpha=0.1, c=1.0, d=2.0),
+    "SquaredExp": tk.SquaredExp(ls=0.9, ampl=1.3),
+    "Exponential": tk.Exponential(ls=1.1, ampl=0.8),
+    "Matern1": tk.Matern1(ls=1.2, ampl=0.9),
+    "Matern2": tk.Matern2(ls=1.1, ampl=0.7),
+    "HyperTan": tk.HyperTan(alpha=0.3, c=0.1),
+    "Multiquadric": tk.Multiquadric(c=0.7),
+    "RationalQuadratic": tk.RationalQuadratic(alpha=1.5, ls=1.2),
+}
+
+
+# Each leaf's compiled-in map, and the interpreter (Composite): a whole
+# train matrix at capacity 1,000 and 1,001 (rows not 16-byte aligned, the
+# masked scalar stores), a strip of rows across the diagonal, and cross
+# mode with 333 queries (m2 % 4 != 0), against the plain version.
+@pytest.mark.parametrize("cap", (1000, 1001))
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5), (torch.float64, 0, 1e-12)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", [*LEAVES, "Composite"])
+def test_compiled_maps_match_plain_version(card, name, dtype, rtol, atol, cap):
+    rng = np.random.default_rng(75)
+    n = 937
+    x = torch.as_tensor(rng.normal(size=(cap, 8)), dtype=dtype, device=card)
+    q = torch.as_tensor(rng.normal(size=(333, 8)), dtype=dtype, device=card)
+    kern = {**LEAVES, **KERNELS}[name].to(dtype, card)
+    before = cc.LAUNCHES
+    cases = (
+        (cc.covariance(kern, x, x, n, 0.3, train=True),
+         cov.plain_train_covariance_padded(kern, x, n, 0.3)),
+        (cc.covariance(kern, x[300:700], x, n, 0.3, train=True, row0=300),
+         cov.plain_train_covariance_padded(kern, x, n, 0.3, rows=(300, 700))),
+        (cc.covariance(kern, x, q, n), cov.plain_cross_covariance_train_padded(kern, x, n, q)),
+    )
+    assert cc.LAUNCHES == before + 3
+    for got, want in cases:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     x = torch.zeros((8, 3), device=card)
     kern = tk.SquaredExp()
