@@ -44,21 +44,42 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    also runs a capacity that is not a multiple of 4 (the float32 kernel's
    cp.async producer), with NaN right of the prefix, which the kernel must
    never read;
-6. (5d) a prior-only refit (``fit_parameters(fit_prior=True,
+   Phase 5d is a prior-only refit (``fit_parameters(fit_prior=True,
    fit_kernel=False)``) of a freshly built 100,512 streamed model: the
    rebuild writes into the old factor's buffer, its peak memory stays below
-   two factors, and its factor equals the build's (K is unchanged).
+   two factors, and its factor equals the build's (K is unchanged);
+6. large-n fitting and persistence: (6a) the builder's default flow at
+   n=100,000 — phase 5c's chain with the sub-fit left at "auto", so a
+   20,000-point sub-fit with the Hutchinson gradient — then predict, append
+   and sample, with both kernels' launches counted over that run, its LML
+   above the heuristic start's and its peak memory below two factors, and
+   the covariance kernel held against its plain version and timed at the
+   sub-fit's 20,000^2 shape; (6b) two
+   full-n Hutchinson iterations of that 100,512 model, each timed by part
+   (solves, dK matvec, rebuild), with one panel-strip launch per panel per
+   rebuild, the factor's buffer reused and the peak below two factors;
+   (6c) both hyperparameter densities (dense at capacity 1,024, streamed at
+   4,096) against the same functions with the plain versions on the card,
+   the covariance's forward against its plain version and its backward
+   against the analytic gradient, the panel-strip kernel against its plain
+   version on three panels of the 20,000-point sub-model's streamed factor,
+   ``polish_map`` on that sub-model (its exact LML must not drop) and ``fit_map(num_steps=3)`` on phase 4's
+   50,512 model through the streamed density; (6d) save and load of the
+   sub-model, whose predictions must come back bit for bit.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 JSON line describing each kernel, and ``{"ok": true, "device": ...}``.
-``--n`` and ``--streamed-n`` shrink the full-width phases for a quick check.
+``--n`` and ``--streamed-n`` shrink the full-width phases (4 and 5b; 5c,
+5d, 6a and 6b) for a quick check.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -530,6 +551,15 @@ def phase_full_width(n: int) -> tuple[dict, tuple]:
     shapes[1]["plain_ms"] = cuda_ms(lambda: cov.plain_train_covariance_padded(kernel, x_pad, n_live, noise),
                                     reps=3)
     torch.cuda.empty_cache()
+    # the Composite's plain version holds too many (cap, cap) temporaries to
+    # run whole: its time is the sum over 8 row strips
+    rows = -(-cap // 8)
+    shapes[3]["plain_ms"] = sum(
+        cuda_ms(lambda r0=r0: cov.plain_train_covariance_padded(composite, x_pad, n_live, noise,
+                                                                rows=(r0, min(r0 + rows, cap))), reps=1)
+        for r0 in range(0, cap, rows))
+    shapes[3]["plain_note"] = "sum over 8 row strips"
+    torch.cuda.empty_cache()
     for entry in shapes:
         entry["flow"] = f"dense, n={n}"
     log(json.dumps({"covariance_tile_times": shapes}))
@@ -577,6 +607,35 @@ def strip_excess(got, want, l_full, j0: int, block: int, atol: float, rtol: floa
     bound = abs_product(l_full[j0:, :j0], l_full[j0:j0 + block, :j0]).mul_(j0 * unit + split)
     bound.add_(want.abs(), alpha=rtol).add_(atol)
     return float(((got - want).abs() - bound).max())
+
+
+def check_panels(kernel, x_pad, n_live: int, noise, l_full, widths, where: str) -> float:
+    """B2 against its plain version on the first, middle and last panels
+    of the float32 factor ``l_full`` (panel widths ``widths``), each within
+    :func:`strip_excess`'s tolerance; returns the largest error."""
+    import torch
+
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
+    from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
+
+    starts = np.cumsum((0,) + tuple(widths[:-1]))
+    max_err = 0.0
+    for p in (0, len(widths) // 2, len(widths) - 1):
+        j0, block = int(starts[p]), widths[p]
+        args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
+        got = panel_strip_cuda.panel_strip(*args)
+        want = plain_panel_strip(*args)
+        err = float((got - want).abs().max())
+        over = strip_excess(got, want, l_full, j0, block, ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"],
+                            panel_strip_cuda.SPLIT_ERROR)
+        log(f"{where}, panel {p} [{j0}, {j0 + block}): max error {err}, excess over its tolerance {over}")
+        max_err = max(max_err, err)
+        if not over <= 0:
+            fail(f"panel-strip kernel differs from the plain version on panel {p} at {where}: "
+                 f"max error {err}")
+        del got, want
+        torch.cuda.empty_cache()
+    return max_err
 
 
 def strip_bound_ms(rest: int, block: int, j0: int, d: int, itemsize: int,
@@ -737,14 +796,17 @@ def phase_streamed_vs_dense(fitted, n: int) -> dict:
     return out
 
 
-def phase_streamed_full_width(n: int) -> tuple[dict, tuple, dict]:
+def phase_streamed_full_width(n: int) -> tuple[dict, tuple, dict, dict]:
     import torch
 
     import friedrich_tpu_torch as ft
     from friedrich_tpu_torch.models.gp import resolve_backend
     from friedrich_tpu_torch.ops.cuda import covariance_cuda, panel_strip_cuda
     from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
-    from friedrich_tpu_torch.ops.covariance import plain_train_covariance_block
+    from friedrich_tpu_torch.ops.covariance import (
+        plain_cross_covariance_train_padded,
+        plain_train_covariance_block,
+    )
     from friedrich_tpu_torch.ops.partition import panel_widths, pick_block
     from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
 
@@ -846,25 +908,13 @@ def phase_streamed_full_width(n: int) -> tuple[dict, tuple, dict]:
     b1_cross = shape_time(f"cross {cap} x {M_QUERIES}", kernel, x_pad, torch.as_tensor(xq, device="cuda"),
                           n_live, False, noise, b1_by_shape)
     b1_cross["flow"] = f"streamed, n={n}"
+    xq_t = torch.as_tensor(xq, device="cuda")
+    b1_cross["plain_ms"] = cuda_ms(lambda: plain_cross_covariance_train_padded(kernel, x_pad, n_live, xq_t))
+    del xq_t
+    torch.cuda.empty_cache()
     log(json.dumps({"covariance_tile_times": [b1_cross]}))
+    max_err = check_panels(kernel, x_pad, n_live, noise, l_full, widths, f"capacity {cap}")
     starts = np.cumsum((0,) + widths[:-1])
-    max_err = 0.0
-    split = panel_strip_cuda.SPLIT_ERROR
-    for p in (0, len(widths) // 2, len(widths) - 1):
-        j0, block = int(starts[p]), widths[p]
-        args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
-        got = panel_strip_cuda.panel_strip(*args)
-        want = plain_panel_strip(*args)
-        err = float((got - want).abs().max())
-        over = strip_excess(got, want, l_full, j0, block, ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"],
-                            split)
-        log(f"panel {p} [{j0}, {j0 + block}): max error {err}, excess over its tolerance {over}")
-        max_err = max(max_err, err)
-        if not over <= 0:
-            fail(f"panel-strip kernel differs from the plain version on panel {p} at full width: "
-                 f"max error {err}")
-        del got, want
-        torch.cuda.empty_cache()
 
     # ---- the middle panel (the widest mid-factor one): the downdate of the
     # kernel and of cuBLAS in float32 against float64, then times
@@ -945,7 +995,7 @@ def phase_streamed_full_width(n: int) -> tuple[dict, tuple, dict]:
         "library_tf32_ms": library_tf32_ms,
         "build_device_s": profile.get("panel_strip_device_s"),
         "shape": f"panel j0={j0} B={block} of capacity {cap}, rest {rest}, d={D}, float32",
-    }, fitted, b1_cross
+    }, fitted, b1_cross, steps
 
 
 def phase_refit(fitted, n: int) -> dict:
@@ -1000,6 +1050,421 @@ def phase_refit(fitted, n: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Inside the scope every covariance build and panel strip on the card
+    runs its plain PyTorch version instead of its kernel (whose launch
+    counts then stay still): the same function with the plain versions, to
+    hold a path through the kernels against."""
+    import torch
+
+    from friedrich_tpu_torch.ops.covariance import plain_covariance_tile
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda, panel_strip_cuda
+    from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
+
+    saved = covariance_cuda.covariance, panel_strip_cuda.panel_strip
+    covariance_cuda.covariance, panel_strip_cuda.panel_strip = plain_covariance_tile, plain_panel_strip
+    try:
+        yield
+    finally:
+        covariance_cuda.covariance, panel_strip_cuda.panel_strip = saved
+
+
+def reset_launches() -> None:
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda, panel_strip_cuda
+
+    covariance_cuda.LAUNCHES = 0
+    covariance_cuda.LAUNCHES_BY_SHAPE.clear()
+    panel_strip_cuda.LAUNCHES = 0
+
+
+def read_launches() -> tuple[int, dict, int]:
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda, panel_strip_cuda
+
+    return (covariance_cuda.LAUNCHES, dict(covariance_cuda.LAUNCHES_BY_SHAPE),
+            panel_strip_cuda.LAUNCHES)
+
+
+def phase_default_flow(n: int, lml_start: float, lml_5c: float) -> tuple[dict, object, object, dict]:
+    """6a: the builder's default flow — phase 5c's chain without a pinned
+    sub-fit size, so the sub-fit is ``"auto"`` (max(8192, n // 5) points,
+    the Hutchinson gradient above capacity 8,192) — then predict, append and
+    sample. Returns its numbers, the model, the sub-fit's model (its
+    subset at the fitted hyperparameters) and B1's time at the sub-fit's
+    train shape."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.models.optimizer import LARGE_FIT_THRESHOLD, auto_subsample, subset_indices
+    from friedrich_tpu_torch.ops.covariance import plain_train_covariance_padded
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda
+    from friedrich_tpu_torch.ops.partition import panel_widths
+
+    cap = n + K_ADD
+    sub = auto_subsample(n)
+    log(f"== phase 6a: the builder's default flow, n={n}, capacity {cap}, sub-fit 'auto' "
+        f"({sub} points), d=8, float32")
+    x, y, xq, x_add, y_add, x_sample = bench_data(n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path; both kernels' launches are counted over this run only
+    reset_launches()
+    t_start = sync()
+    builder = (
+        ft.GaussianProcessBuilder(x, y, device="cuda")
+        .set_noise(1.0).set_dtype("float32").set_capacity(cap).set_backend("streamed")
+        .set_fit_parameters(100, 0.05).fit_kernel().fit_prior()
+    )
+    gp = builder.train()
+    lml = gp.log_marginal_likelihood()
+    t0 = sync()
+    mean, var = gp.predict_in_batches(xq, 4096)
+    t_predict = sync() - t0
+    t0 = sync()
+    gp.add_samples(x_add, y_add)
+    t_add = sync() - t0
+    t0 = sync()
+    draw = gp.sample_at(torch.as_tensor(x_sample, device="cuda")).sample(
+        torch.Generator(device="cuda").manual_seed(0))
+    t_sample = sync() - t0
+    t_total = sync() - t_start
+    b1_launches, b1_by_shape, b2_launches = read_launches()
+    # ---- end of the main path
+
+    peak = torch.cuda.max_memory_allocated()
+    two_factors = 2 * cap * cap * 4
+    widths = panel_widths(cap, gp.state.block)
+    t = builder.timings
+    iterations = t.get("subfit_iterations", t.get("fit_iterations"))
+    fit_s = t.get("subfit", t.get("fit"))
+    steps = {
+        "timings": t, "subfit_points": sub,
+        "subfit_gradient": "hutchinson" if (sub or cap) > LARGE_FIT_THRESHOLD else "exact",
+        "subfit_iterations": iterations, "subfit_s_per_iteration": fit_s / max(iterations, 1),
+        "predict_in_batches_s": t_predict, "add_samples_s": t_add, "sample_at_s": t_sample,
+        "total_s": t_total, "peak_bytes": peak, "peak_gib": peak / 2**30,
+        "two_factors_bytes": two_factors, "panel_strip_launches": b2_launches,
+        "covariance_tile_launches": b1_launches,
+        "covariance_tile_launches_by_shape": {f"{k[0]}x{k[1]}{' train' if k[2] else ''}": v
+                                              for k, v in b1_by_shape.items()},
+        "lml_start": lml_start, "lml_fitted": lml, "lml_5c_subfit_8192": lml_5c,
+        "ls": float(gp.kernel.ls), "ampl": float(gp.kernel.ampl), "noise": gp.noise,
+        "var_min": float(var.min()), "mean_abs_max": float(mean.abs().max()),
+    }
+    log(json.dumps({"default_flow_steps": steps}))
+    if gp.state.backend != "streamed":
+        fail(f"the model's backend is {gp.state.backend!r}, expected 'streamed'")
+    if b1_launches <= 0 or b2_launches <= 0:
+        fail(f"the default flow launched the covariance kernel {b1_launches} times and the "
+             f"panel-strip kernel {b2_launches} times; each must run")
+    if b2_launches != len(widths):
+        fail(f"the panel-strip kernel launched {b2_launches} times, expected one per panel "
+             f"of the full-n build ({len(widths)})")
+    if mean.shape != (M_QUERIES,) or var.shape != (M_QUERIES,) or draw.shape != (M_SAMPLE,):
+        fail(f"unexpected shapes {tuple(mean.shape)} {tuple(var.shape)} {tuple(draw.shape)}")
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+            and bool(torch.isfinite(draw).all())):
+        fail("non-finite predictions or draws")
+    if float(var.min()) < -1e-4:
+        fail(f"negative predictive variance {float(var.min())}")
+    if not lml > lml_start:
+        fail(f"LML after the default flow's fit {lml} does not exceed the heuristic start's "
+             f"{lml_start}")
+    if gp.num_samples != cap:
+        fail(f"add_samples left {gp.num_samples} samples, expected {cap}")
+    if not peak < two_factors:
+        fail(f"peak device memory {peak} B is not below two factors ({two_factors} B)")
+    del mean, var, draw, builder
+    torch.cuda.empty_cache()
+    # B1 at the sub-fit's train shape, beside its bound and its launches on the flow
+    size = sub or min(n, 8192)
+    idx = subset_indices(n, size, 0, "cpu").numpy()
+    x_sub = torch.as_tensor(x[idx], device="cuda")
+    b1_sub = shape_time(f"train {size}^2", gp.kernel, x_sub, x_sub, size, True, gp.noise, b1_by_shape)
+    b1_sub["flow"] = f"default (sub-fit auto), n={n}"
+    # ... and against its plain version there
+    got = covariance_cuda.covariance(gp.kernel, x_sub, x_sub, size, gp.noise, train=True)
+    want = plain_train_covariance_padded(gp.kernel, x_sub, size, gp.noise)
+    b1_sub["max_abs_err"] = float((got - want).abs().max())
+    over = excess(got, want, ATOL_F32, RTOL_F32)
+    del got, want
+    log(f"train {size}^2: max error {b1_sub['max_abs_err']}, excess over its tolerance {over}")
+    if not over <= 0:
+        fail(f"kernel differs from the plain version at the sub-fit's train {size}^2: max error "
+             f"{b1_sub['max_abs_err']} beyond atol {ATOL_F32} + rtol {RTOL_F32}")
+    b1_sub["plain_ms"] = cuda_ms(lambda: plain_train_covariance_padded(gp.kernel, x_sub, size, gp.noise))
+    del x_sub
+    torch.cuda.empty_cache()
+    log(json.dumps({"covariance_tile_times": [b1_sub]}))
+    # the sub-fit's model at its fitted hyperparameters (the builder drops
+    # its own), for phases 6c and 6d
+    sub_gp = ft.GaussianProcess.new(gp.prior, gp.kernel, gp.noise, None, x[idx], y[idx],
+                                    dtype="float32", backend="auto", device="cuda")
+    return steps, gp, sub_gp, b1_sub
+
+
+def phase_full_n_refit(gp) -> dict:
+    """6b: two full-n Hutchinson iterations of 6a's model (every rebuild
+    writes into the factor's buffer), each timed by part."""
+    import torch
+
+    from friedrich_tpu_torch.models import large_fit
+    from friedrich_tpu_torch.ops.partition import panel_widths
+
+    cap = gp.state.capacity
+    log(f"== phase 6b: full-n Hutchinson refit at capacity {cap}, float32, max_iter=2")
+    parts: list[dict] = []
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = sync()
+            out = fn(*args, **kwargs)
+            dt = sync() - t0
+            if name == "solves":
+                parts.append({})
+            parts[-1][f"{name}_s"] = dt
+            return out
+        return wrapped
+
+    saved = large_fit.cho_solve, large_fit.streamed_grad_matvec, large_fit.rebuild_cholesky
+    large_fit.cho_solve = timed("solves", saved[0])
+    large_fit.streamed_grad_matvec = timed("grad_matvec", saved[1])
+    large_fit.rebuild_cholesky = timed("rebuild", saved[2])
+    ptr = gp.state.l.data_ptr()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        t0 = sync()
+        gp.fit_parameters(fit_prior=False, fit_kernel=True, max_iter=2)
+        total = sync() - t0
+    finally:
+        large_fit.cho_solve, large_fit.streamed_grad_matvec, large_fit.rebuild_cholesky = saved
+    _, _, b2_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    two_factors = 2 * cap * cap * 4
+    rebuilds = sum("rebuild_s" in p for p in parts)
+    panels = len(panel_widths(cap, gp.state.block))
+    for p in parts:
+        p["iteration_s"] = sum(p.values())
+    out = {
+        "iterations": gp.fit_iterations, "per_iteration": parts, "total_s": total,
+        "rebuilds": rebuilds, "panel_strip_launches": b2_launches,
+        "panel_strip_launches_per_rebuild": b2_launches / max(rebuilds, 1),
+        "same_buffer": gp.state.l.data_ptr() == ptr, "peak_bytes": peak, "peak_gib": peak / 2**30,
+        "two_factors_bytes": two_factors, "lml": gp.log_marginal_likelihood(),
+        "ls": float(gp.kernel.ls), "ampl": float(gp.kernel.ampl), "noise": gp.noise,
+    }
+    log(json.dumps({"full_n_refit": out}))
+    if gp.fit_iterations != 2 or rebuilds < 1:
+        fail(f"the refit ran {gp.fit_iterations} iterations with {rebuilds} rebuilds, expected two "
+             f"iterations and at least one rebuild")
+    if b2_launches != rebuilds * panels:
+        fail(f"the refit launched the panel-strip kernel {b2_launches} times, expected {panels} per "
+             f"rebuild")
+    if not out["same_buffer"]:
+        fail("the refit's rebuilds did not write into the factor's buffer")
+    if not peak < two_factors:
+        fail(f"the refit's peak device memory {peak} B is not below two factors ({two_factors} B)")
+    if not np.isfinite(out["lml"]):
+        fail(f"the refit's LML is {out['lml']}")
+    return out
+
+
+#: Densities with the kernels against the same densities with the plain
+#: versions, both on the card: float64 at rtol 1e-9 (the kernels differ from
+#: their plain versions by rounding only); float32 at rtol 1e-4 on the value
+#: and 1e-3 of the largest gradient entry (B2's 3xTF32 products and the
+#: float32 factors and solves).
+DENSITY_TOL = {"float64": (1e-9, 1e-9), "float32": (1e-4, 1e-3)}
+
+
+def phase_densities_and_map_fit(sub_gp, fitted_50k, n_50k: int) -> dict:
+    """6c: both densities on the card against their plain versions; the
+    covariance's forward against its plain version and its backward
+    against the analytic gradient; B2 against its plain version on the
+    sub-model's streamed factor, then polish_map on 6a's sub-model; fit_map
+    on phase 4's model through the streamed density."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.mcmc.logprob import initial_signs, initial_theta, make_hyperparam_logprob
+    from friedrich_tpu_torch.models.map_fit import fit_map, polish_map
+    from friedrich_tpu_torch.ops import covariance as cov
+    from friedrich_tpu_torch.ops.partition import panel_widths
+    from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
+
+    log("== phase 6c: densities, the covariance's backward and the MAP fits on the card")
+    out: dict = {"densities": [], "backward": []}
+    rng = np.random.default_rng(11)
+    for dtype, backend in itertools.product((torch.float64, torch.float32), ("dense", "streamed")):
+        cap = 1024 if backend == "dense" else 4096
+        x = rng.normal(size=(cap - 24, D))
+        y = np.sin(2.5 * x[:, 0]) + 0.5 * np.cos(2.0 * x[:, 1]) + rng.normal(size=cap - 24)
+        gp = ft.GaussianProcess.new(ft.priors.ConstantPrior(c=0.0), ft.kernels.SquaredExp(ls=1.1, ampl=0.9),
+                                    1.0, None, x, y, dtype=dtype, capacity=cap, device="cuda")
+        theta = initial_theta(gp.state) + 0.05
+        logp = make_hyperparam_logprob(gp.state, signs=initial_signs(gp.state), backend=backend)
+
+        def value_and_grad():
+            th = theta.clone().requires_grad_(True)
+            val = logp(th)
+            val.backward()
+            return float(val.detach()), th.grad
+
+        reset_launches()
+        val, grad = value_and_grad()
+        b1, _, b2 = read_launches()
+        reset_launches()
+        with plain_versions():
+            pval, pgrad = value_and_grad()
+        if read_launches() != (0, {}, 0):
+            fail("a kernel launched inside plain_versions()")
+        name = str(dtype).removeprefix("torch.")
+        rtol_v, rtol_g = DENSITY_TOL[name]
+        entry = {"density": backend, "capacity": cap, "dtype": name, "value": val, "plain_value": pval,
+                 "grad": grad.tolist(), "plain_grad": pgrad.tolist(),
+                 "value_rel_err": abs(val - pval) / abs(pval),
+                 "grad_err_over_max": float((grad - pgrad).abs().max() / pgrad.abs().max()),
+                 "covariance_tile_launches": b1, "panel_strip_launches": b2}
+        out["densities"].append(entry)
+        if (b1 if backend == "dense" else b2) <= 0:
+            fail(f"the {backend} density at capacity {cap} did not launch its kernel")
+        if not (entry["value_rel_err"] <= rtol_v and entry["grad_err_over_max"] <= rtol_g):
+            fail(f"the {backend} density ({name}, capacity {cap}) differs from its plain version: "
+                 f"value {val} vs {pval}, gradient {grad.tolist()} vs {pgrad.tolist()}")
+        del gp, logp
+    # TrainCovarianceFn: its forward (B1) against the plain builder, its
+    # backward (autograd through the plain builder) against the analytic
+    # gradient; float64 at 1e-10 of the largest entry, float32 at rtol 1e-4
+    for dtype, points in itertools.product((torch.float64, torch.float32), (1000, 1001)):
+        x = torch.as_tensor(rng.normal(size=(points, D)), dtype=dtype, device="cuda")
+        g = torch.as_tensor(rng.normal(size=(points, points)), dtype=dtype, device="cuda")
+        n_live = points - 37
+        kernel = ft.kernels.SquaredExp(ls=1.1, ampl=0.9).to(dtype, "cuda")
+        p = kernel.get_params().clone().requires_grad_(True)
+        nz = torch.tensor(0.7, dtype=dtype, device="cuda", requires_grad=True)
+        reset_launches()
+        k = cov.TrainCovarianceFn.apply(p, nz, kernel, x, n_live, "gram")
+        b1, _, _ = read_launches()
+        got = torch.cat([gv.reshape(-1) for gv in torch.autograd.grad(torch.sum(g * k), (p, nz))])
+        want_p, want_n = cov.analytic_train_covariance_grads(kernel, x, n_live, 0.7, g)
+        want = torch.cat([want_p, want_n.reshape(1)])
+        name = str(dtype).removeprefix("torch.")
+        atol, rtol = (ATOL_F64, RTOL_F64) if dtype == torch.float64 else (ATOL_F32, RTOL_F32)
+        forward_over = excess(k.detach(), cov.plain_train_covariance_padded(kernel, x, n_live, 0.7),
+                              atol, rtol)
+        err = float((got - want).abs().max())
+        ok = (err <= 1e-10 * max(1.0, float(want.abs().max())) if dtype == torch.float64
+              else bool(torch.allclose(got, want, rtol=1e-4, atol=0)))
+        out["backward"].append({"dtype": name, "points": points, "grad": got.tolist(),
+                                "analytic_grad": want.tolist(), "max_abs_err": err,
+                                "forward_excess": forward_over, "covariance_tile_launches": b1})
+        if b1 != 1 or not forward_over <= 0:
+            fail(f"TrainCovarianceFn's forward ({name}, {points} points) launched the covariance "
+                 f"kernel {b1} times, excess over the plain builder {forward_over}")
+        if not ok:
+            fail(f"TrainCovarianceFn's backward ({name}, {points} points) differs from the analytic "
+                 f"gradient: {got.tolist()} vs {want.tolist()}")
+        del x, g, k
+    log(json.dumps({"densities_vs_plain": out["densities"], "backward_vs_analytic": out["backward"]}))
+
+    # B2 against its plain version on the panels polish_map factors: the
+    # streamed factor of 6a's sub-model
+    state = sub_gp.state
+    widths = panel_widths(state.capacity)
+    l_sub, ok = streamed_cholesky_factor(state.kernel, state.x, state.n, state.noise, block=widths)
+    if not bool(ok):
+        fail(f"the streamed factorization of the {state.capacity} sub-model failed")
+    out["panel_max_abs_err"] = check_panels(state.kernel, state.x, state.n, state.noise, l_sub, widths,
+                                            f"the {state.capacity} sub-model's streamed factor")
+    del l_sub
+    torch.cuda.empty_cache()
+
+    # polish_map on 6a's sub-model (the streamed density above capacity 2,048)
+    lml_before = sub_gp.log_marginal_likelihood()
+    panels = len(widths)
+    reset_launches()
+    t0 = sync()
+    polished = ft.GaussianProcess(polish_map(state))
+    t_polish = sync() - t0
+    _, _, b2 = read_launches()
+    lml_after = polished.log_marginal_likelihood()
+    out["polish"] = {"capacity": state.capacity, "steps": b2 / panels, "seconds": t_polish,
+                     "panel_strip_launches": b2, "lml_before": lml_before, "lml_after": lml_after,
+                     "kernel_before": [float(v) for v in state.kernel.get_params()],
+                     "noise_before": float(state.noise),
+                     "kernel_after": [float(v) for v in polished.kernel.get_params()],
+                     "noise_after": polished.noise}
+    log(json.dumps({"polish_map": out["polish"]}))
+    if b2 <= 0:
+        fail("polish_map did not launch the panel-strip kernel")
+    if not lml_after >= lml_before - 1e-4 * abs(lml_before):
+        fail(f"polish_map lowered the sub-model's exact LML from {lml_before} to {lml_after}")
+    del polished
+    torch.cuda.empty_cache()
+
+    # fit_map on phase 4's model (dense backend, capacity n + 512) through the
+    # streamed density: two factors of this size fit the card
+    prior, kernel, noise = fitted_50k
+    x, y, *_ = bench_data(n_50k)
+    gp = ft.GaussianProcess.new(prior, kernel, noise, None, x, y, dtype="float32",
+                                capacity=n_50k + K_ADD, device="cuda")
+    lml_before = gp.log_marginal_likelihood()
+    panels = len(panel_widths(gp.state.capacity))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = sync()
+    gp.fit_map(num_steps=3)
+    t_map = sync() - t0
+    _, _, b2 = read_launches()
+    out["fit_map"] = {"capacity": gp.state.capacity, "steps": b2 / panels, "seconds": t_map,
+                      "panel_strip_launches": b2, "lml_before": lml_before,
+                      "lml_after": gp.log_marginal_likelihood(),
+                      "kernel_after": [float(v) for v in gp.kernel.get_params()], "noise_after": gp.noise,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(json.dumps({"fit_map": out["fit_map"]}))
+    if b2 != 3 * panels:
+        fail(f"fit_map(num_steps=3) launched the panel-strip kernel {b2} times, expected {3 * panels}")
+    if not np.isfinite(out["fit_map"]["lml_after"]):
+        fail(f"fit_map ended at a non-finite LML {out['fit_map']['lml_after']}")
+    del gp
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_save_load(sub_gp) -> dict:
+    """6d: save and load 6a's sub-model; the loaded model's predictions must
+    equal the saved one's bit for bit."""
+    import tempfile
+
+    import torch
+
+    import friedrich_tpu_torch as ft
+
+    log(f"== phase 6d: save and load of a {sub_gp.state.capacity}-point model on the card")
+    xq = torch.as_tensor(bench_data(1)[2], device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/model"
+        t0 = sync()
+        sub_gp.save(path)
+        t_save = sync() - t0
+        size = os.path.getsize(f"{path}.npz")
+        t0 = sync()
+        loaded = ft.GaussianProcess.load(path)
+        t_load = sync() - t0
+    want = sub_gp.predict_mean_variance(xq)
+    got = loaded.predict_mean_variance(xq)
+    out = {"bytes": size, "save_s": t_save, "load_s": t_load, "queries": xq.shape[0],
+           "device": str(loaded.state.x.device),
+           "identical": all(torch.equal(a, b) for a, b in zip(got, want))}
+    log(json.dumps({"save_load": out}))
+    if loaded.state.x.device.type != "cuda" or not out["identical"]:
+        fail("the loaded model's predictions differ from the saved model's")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--n", type=int, default=50_000,
@@ -1022,12 +1487,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_panel_strip_vs_plain()
     phase_streamed_vs_dense(fitted, args.n)
-    del fitted
+    fitted_50k = fitted
     torch.cuda.empty_cache()
-    streamed_entry, fitted, b1_cross = phase_streamed_full_width(args.streamed_n)
+    streamed_entry, fitted, b1_cross, flow_5c = phase_streamed_full_width(args.streamed_n)
     entry["shapes"].append(b1_cross)
     torch.cuda.empty_cache()
     phase_refit(fitted, args.streamed_n)
+    del fitted
+    torch.cuda.empty_cache()
+    t6 = time.perf_counter()
+    default, gp, sub_gp, b1_sub = phase_default_flow(args.streamed_n, flow_5c["lml_start"],
+                                                     flow_5c["lml_fitted"])
+    entry["shapes"].append(b1_sub)
+    entry["max_abs_err"] = max(entry["max_abs_err"], b1_sub["max_abs_err"])
+    entry["launches_default_flow"] = default["covariance_tile_launches"]
+    streamed_entry["launches_default_flow"] = default["panel_strip_launches"]
+    refit = phase_full_n_refit(gp)
+    streamed_entry["launches_full_n_refit"] = refit["panel_strip_launches"]
+    del gp
+    torch.cuda.empty_cache()
+    map_fits = phase_densities_and_map_fit(sub_gp, fitted_50k, args.n)
+    streamed_entry["max_abs_err"] = max(streamed_entry["max_abs_err"], map_fits["panel_max_abs_err"])
+    phase_save_load(sub_gp)
+    del sub_gp
+    torch.cuda.empty_cache()
+    log(f"phase 6 took {time.perf_counter() - t6} s")
     log(smi_line())
     log(json.dumps({"kernels": [entry, streamed_entry]}))
     log(json.dumps({"ok": True, "device": {

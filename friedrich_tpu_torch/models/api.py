@@ -25,7 +25,7 @@ from ..config import (
     GROWTH_FACTOR,
 )
 from ..conversion import as_input_matrix, as_output_vector
-from ..utils.errors import CholeskyError, ConfigError, ShapeError, not_ported
+from ..utils.errors import CholeskyError, ConfigError, ShapeError
 from . import gp as core
 from .multivariate_normal import MultivariateNormal
 from .optimizer import fit_parameters as _fit_parameters
@@ -283,13 +283,16 @@ class GaussianProcess:
         convergence_fraction: float = DEFAULT_CONVERGENCE_FRACTION,
         max_time: float = DEFAULT_MAX_TIME,
         gradient: str = "auto",
+        num_probes: int = 8,
         seed: int = 0,
         subsample=None,
     ) -> None:
         """Refit prior/kernel/noise (``mod.rs:406-445``). ``gradient``:
-        ``"exact"`` or ``"auto"``; ``subsample``: fit the hyperparameters
-        on a random subset of that size (int, or ``"auto"``) and pay one
-        full factorization at the end. See ``models/optimizer.py``."""
+        ``"exact"``, ``"hutchinson"`` or ``"auto"`` (Hutchinson above
+        capacity 8,192), ``num_probes`` and ``seed`` the Hutchinson
+        estimator's probes; ``subsample``: fit the hyperparameters on a
+        random subset of that size (int, or ``"auto"``) and pay one full
+        factorization at the end. See ``models/optimizer.py``."""
         self._state, self.fit_iterations = _fit_parameters(
             self._state,
             fit_prior=fit_prior,
@@ -298,6 +301,7 @@ class GaussianProcess:
             convergence_fraction=convergence_fraction,
             max_time=max_time,
             gradient=gradient,
+            num_probes=num_probes,
             seed=seed,
             subsample=subsample,
         )
@@ -326,16 +330,36 @@ class GaussianProcess:
             raise CholeskyError()
         self._state = state
 
-    def fit_map(self, *args, **kwargs) -> None:
-        """Exact-LML MAP fit of the JAX package (``models/map_fit.py``)."""
-        raise not_ported("fit_map")
+    def fit_map(
+        self,
+        num_steps: int = 200,
+        learning_rate: float = 0.05,
+        prior_sigma: Optional[float] = None,
+    ) -> None:
+        """Corrected variant of ``fit_parameters``: maximize the EXACT log
+        marginal likelihood by autodiff (works for any kernel composition;
+        see ``models/map_fit.py``)."""
+        from .map_fit import fit_map as _fit_map
+
+        self._state = _fit_map(
+            self._state, num_steps=num_steps, learning_rate=learning_rate,
+            prior_sigma=prior_sigma,
+        )
 
     # -- persistence -------------------------------------------------------------
 
     def save(self, path: str) -> None:
-        """Model persistence of the JAX package (``utils/serialization.py``)."""
-        raise not_ported("save")
+        """Serialize the full trained model (reference: serde derives,
+        ``mod.rs:58``) in the JAX package's format. Round-trips to
+        bit-identical predictions."""
+        from ..utils.serialization import save_gp
+
+        save_gp(self, path)
 
     @classmethod
     def load(cls, path: str) -> "GaussianProcess":
-        raise not_ported("load")
+        """A model written by :meth:`save` or by the JAX package, on the
+        default device (CUDA unless ``config.set_device`` says otherwise)."""
+        from ..utils.serialization import load_gp
+
+        return load_gp(path)

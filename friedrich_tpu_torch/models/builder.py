@@ -71,6 +71,7 @@ class GaussianProcessBuilder:
         # full model once (optimizer.auto_subsample)
         self._fit_subsample = "auto"
         self._fit_gradient = "auto"
+        self._fit_polish = False
         #: Wall-clock seconds of each step of the last :meth:`train`
         #: (device work included), and the sub-fit's ADAM iterations.
         self.timings: dict = {}
@@ -199,20 +200,21 @@ class GaussianProcessBuilder:
         return self
 
     def set_fit_polish(self, polish) -> "GaussianProcessBuilder":
-        """Exact-LML polish of the JAX package: only ``False`` is ported."""
+        """Exact-LML corrective pass after the sub-fit ADAM: ``True`` runs
+        :func:`~.map_fit.polish_map` (a short Adam on the exact LML) on the
+        sub-model from the multiplicative ADAM's endpoint, before the
+        full-n build. Default ``False``; only the sub-fit flow uses it."""
         if not isinstance(polish, bool):
             raise ConfigError(f"fit polish must be a bool, got {polish!r}")
-        if polish:
-            raise not_ported("polish")
+        self._fit_polish = polish
         return self
 
     def set_fit_gradient(self, gradient: str) -> "GaussianProcessBuilder":
-        """Gradient method for ``train()``'s fit: 'auto' (default) or
-        'exact'; 'hutchinson' is not ported yet and raises."""
+        """Gradient method for ``train()``'s fit: 'auto' (default: exact up
+        to capacity 8,192, Hutchinson above), 'exact' or 'hutchinson'
+        (``models/optimizer.fit_kernel_noise``)."""
         if gradient not in ("auto", "exact", "hutchinson"):
             raise ConfigError(f"unknown fit gradient {gradient!r}")
-        if gradient == "hutchinson":
-            raise not_ported("gradient='hutchinson'")
         self._fit_gradient = gradient
         return self
 
@@ -277,7 +279,8 @@ class GaussianProcessBuilder:
         1. prior fitted on the FULL data (kernel-independent), matching the
            reference's prior-before-kernel order inside ``fit_parameters``
            (``mod.rs:414-421``);
-        2. kernel + noise fitted on a fixed-seed random subset;
+        2. kernel + noise fitted on a fixed-seed random subset (and
+           polished, with ``set_fit_polish(True)``);
         3. ONE full-n build at the fitted hyperparameters.
         """
         t0 = _clock(x.device)
@@ -298,6 +301,14 @@ class GaussianProcessBuilder:
         )
         self.timings["subfit"] = _clock(x.device) - t0
         self.timings["subfit_iterations"] = sub_gp.fit_iterations
+        if self._fit_polish:
+            from .map_fit import polish_map
+
+            # short exact-LML corrective pass from the ADAM endpoint, at the
+            # sub-model's size
+            t0 = _clock(x.device)
+            sub_gp = GaussianProcess(polish_map(sub_gp.state, max_time=self._max_time))
+            self.timings["polish"] = _clock(x.device) - t0
         t0 = _clock(x.device)
         gp = self._new(
             prior, sub_gp.kernel, sub_gp.noise, x, y, capacity=self._capacity,

@@ -40,7 +40,7 @@ from ..config import (
 )
 from ..ops.cholesky import cho_solve
 from ..ops.covariance import gradient_covariances_padded
-from ..utils.errors import CholeskyError, not_ported
+from ..utils.errors import CholeskyError
 from .gp import GPState, make_state, rebuild_cholesky
 
 BETA1 = 0.9
@@ -142,7 +142,9 @@ def _init_params(vec: torch.Tensor) -> torch.Tensor:
 
 
 #: ``gradient="auto"`` switches from the exact dense gradient terms to the
-#: streamed/Hutchinson fit of the JAX package above this capacity.
+#: streamed Hutchinson fit (``models/large_fit.py``) above this capacity.
+#: The JAX package's value, kept for parity: it was chosen on a TPU and is
+#: still to be decided on the H100 (ROADMAP).
 LARGE_FIT_THRESHOLD = 8192
 
 #: ``subsample="auto"`` policy boundary (see :func:`auto_subsample`).
@@ -164,25 +166,28 @@ def fit_kernel_noise(
     convergence_fraction: float = DEFAULT_CONVERGENCE_FRACTION,
     max_time: float = DEFAULT_MAX_TIME,
     gradient: str = "auto",
+    num_probes: int = 8,
+    seed: int = 0,
 ) -> tuple[GPState, int]:
     """Run the ADAM fit until convergence / max_iter / max_time; returns
     the fitted state and the number of iterations run.
 
     Dispatches on ``kernel.is_scalable`` exactly like ``fit_parameters``
     (``mod.rs:434-444``). ``gradient``: ``"exact"`` (the reference's dense
-    gradient terms) or ``"auto"`` (exact up to capacity
-    :data:`LARGE_FIT_THRESHOLD`; the JAX package's Hutchinson gradient
-    above it is not ported yet).
+    gradient terms), ``"hutchinson"`` (streamed factor-based terms sized
+    for large n, ``models/large_fit.py``) or ``"auto"`` (exact up to
+    capacity :data:`LARGE_FIT_THRESHOLD`, Hutchinson above it).
+    ``num_probes`` and ``seed`` configure the Hutchinson trace estimator.
     """
     if gradient not in ("auto", "exact", "hutchinson"):
         raise ValueError(f"unknown gradient method {gradient!r}")
-    if gradient == "auto" and state.capacity > LARGE_FIT_THRESHOLD:
-        raise not_ported(
-            f"gradient='auto' at capacity {state.capacity} (it picks the "
-            f"Hutchinson gradient above {LARGE_FIT_THRESHOLD})"
-        )
+    if gradient == "auto":
+        gradient = "hutchinson" if state.capacity > LARGE_FIT_THRESHOLD else "exact"
     if gradient == "hutchinson":
-        raise not_ported("gradient='hutchinson'")
+        from .large_fit import fit_kernel_noise_large
+
+        return fit_kernel_noise_large(state, max_iter, convergence_fraction, max_time,
+                                      num_probes=num_probes, seed=seed)
     scalable = state.kernel.is_scalable
     kparams = _init_params(state.kernel.get_params())
     if scalable:
@@ -231,6 +236,7 @@ def fit_subsampled(
     convergence_fraction: float = DEFAULT_CONVERGENCE_FRACTION,
     max_time: float = DEFAULT_MAX_TIME,
     gradient: str = "auto",
+    num_probes: int = 8,
     seed: int = 0,
 ) -> tuple[GPState, int]:
     """Fit kernel/noise on a RANDOM SUBSET, then one full-n rebuild.
@@ -246,7 +252,7 @@ def fit_subsampled(
         raise ValueError(f"subsample must be positive, got {subsample}")
     if s >= n:
         return fit_kernel_noise(state, max_iter, convergence_fraction, max_time,
-                                gradient=gradient)
+                                gradient=gradient, num_probes=num_probes, seed=seed)
     idx = subset_indices(n, s, seed, state.x.device)
     x_sub = state.x[idx]
     sub_state, ok = make_state(
@@ -257,7 +263,8 @@ def fit_subsampled(
     if not bool(ok):
         raise CholeskyError()
     sub_state, iterations = fit_kernel_noise(
-        sub_state, max_iter, convergence_fraction, max_time, gradient=gradient
+        sub_state, max_iter, convergence_fraction, max_time, gradient=gradient,
+        num_probes=num_probes, seed=seed,
     )
     # the one full-n rebuild writes into the old factor's buffer
     # (``friedrich_tpu/models/optimizer.py:465``)
@@ -276,6 +283,7 @@ def fit_parameters(
     convergence_fraction: float = DEFAULT_CONVERGENCE_FRACTION,
     max_time: float = DEFAULT_MAX_TIME,
     gradient: str = "auto",
+    num_probes: int = 8,
     seed: int = 0,
     subsample: Optional[int] = None,
 ) -> tuple[GPState, int]:
@@ -300,10 +308,11 @@ def fit_parameters(
         if subsample is not None:
             state, iterations = fit_subsampled(
                 state, subsample, max_iter, convergence_fraction, max_time,
-                gradient=gradient, seed=seed,
+                gradient=gradient, num_probes=num_probes, seed=seed,
             )
         else:
             state, iterations = fit_kernel_noise(
-                state, max_iter, convergence_fraction, max_time, gradient=gradient
+                state, max_iter, convergence_fraction, max_time, gradient=gradient,
+                num_probes=num_probes, seed=seed,
             )
     return state, iterations

@@ -59,17 +59,19 @@ def cholesky(k_mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _unblocked_cholesky_substitute(a: torch.Tensor, eps) -> torch.Tensor:
     """Right-looking unblocked Cholesky of a small block with per-pivot
-    epsilon substitution (nalgebra ``new_with_substitute`` semantics)."""
+    epsilon substitution (nalgebra ``new_with_substitute`` semantics), built
+    column by column without in-place updates, so that autograd can
+    differentiate it."""
     b = a.shape[0]
     idx = torch.arange(b, device=a.device)
-    m = a.clone()
+    m, cols = a, []
     for j in range(b):
         d = m[j, j]
         ljj = torch.sqrt(torch.where(d > 0, d, eps))
         below = torch.where(idx > j, m[:, j] / ljj, 0.0)
-        m[:, j] = below + torch.where(idx == j, ljj, 0.0)
-        m -= torch.outer(below, below)
-    return torch.tril(m)
+        cols.append(below + torch.where(idx == j, ljj, 0.0))
+        m = m - torch.outer(below, below)
+    return torch.tril(torch.stack(cols, dim=1))
 
 
 def cholesky_with_substitute(k_mat: torch.Tensor, eps,
@@ -93,6 +95,24 @@ def cholesky_with_substitute(k_mat: torch.Tensor, eps,
             m[j1:, j0:j1] = below
             m[j1:, j1:] -= below @ below.mT
     return torch.tril(m)
+
+
+def cholesky_with_substitute_functional(k_mat: torch.Tensor, eps,
+                                        block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """:func:`cholesky_with_substitute` built out of place, column panel by
+    column panel, so that autograd can differentiate it (the density of
+    ``mcmc/logprob.py`` with ``cholesky_epsilon`` set); the same
+    arithmetic. It holds about twice the memory of the in-place version,
+    which the factorizations of large matrices keep."""
+    n = k_mat.shape[0]
+    m, panels = k_mat, []  # m: the trailing matrix from row/column j0
+    for j0 in range(0, n, block):
+        w = min(block, n - j0)
+        l11 = _unblocked_cholesky_substitute(m[:w, :w], eps)
+        below = torch.linalg.solve_triangular(l11.mT, m[w:, :w], upper=True, left=False)
+        panels.append(torch.cat([k_mat.new_zeros((j0, w)), l11, below], dim=0))
+        m = m[w:, w:] - below @ below.mT
+    return torch.tril(torch.cat(panels, dim=1))
 
 
 def factor(k_mat: torch.Tensor, eps=None,

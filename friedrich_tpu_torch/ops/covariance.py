@@ -17,6 +17,12 @@ zero-padded right-hand sides give zero in the dead region.
 plain PyTorch versions (the ``plain_*`` functions below, which the kernel
 is held against) for tensors on the CPU. ``gradient_covariances_padded`` is
 plain PyTorch on every device.
+
+**Gradient.** The kernel has no backward; :class:`TrainCovarianceFn` gives
+the training covariance one, for the exact-likelihood density
+(``mcmc/logprob.py``): its forward is the dispatch above, its backward
+differentiates the plain builder strip by strip (the JAX package
+differentiates an XLA build there, outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -80,6 +86,18 @@ def plain_cross_covariance_train_padded(kernel, x_pad: torch.Tensor, n: int,
     c = plain_cross_covariance(kernel, x_pad, xq, method=method)
     idx = torch.arange(x_pad.shape[0], device=x_pad.device)
     return torch.where((idx < n)[:, None], c, 0.0)
+
+
+def plain_covariance_tile(kernel, x1: torch.Tensor, x2: torch.Tensor, n: int, noise=0.0,
+                          train: bool = False, method: str = "gram",
+                          row0: int = 0) -> torch.Tensor:
+    """Plain version of the kernel's wrapper ``covariance_cuda.covariance``,
+    with its signature: the function a launch is held against, and the one
+    that takes the wrapper's place to run a path with the plain versions."""
+    if train:
+        return plain_train_covariance_block(kernel, x1, x2, n, noise, row0=row0, method=method)
+    rows = torch.arange(row0, row0 + x1.shape[0], device=x1.device)
+    return torch.where((rows < n)[:, None], plain_cross_covariance(kernel, x1, x2, method), 0.0)
 
 
 def cross_covariance(kernel, x1: torch.Tensor, x2: torch.Tensor,
@@ -150,3 +168,65 @@ def gradient_covariances_padded(kernel, x_pad: torch.Tensor, n: int,
     stacked = torch.where(diag[None, :, :], dgrads[:, :, None], stacked)
     live = (idx[:, None] < n) & (idx[None, :] < n)
     return torch.where(live[None, :, :], stacked, 0.0)
+
+
+def analytic_train_covariance_grads(kernel, x_pad: torch.Tensor, n: int, noise,
+                                    g: torch.Tensor,
+                                    method: str = "gram") -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``sum(g * K_pad)`` in the kernel's raw parameters
+    and the noise, from the analytic covariance gradients: ``sum(g * dK_p)``
+    per parameter (:func:`gradient_covariances_padded`) and ``2 noise``
+    times the live diagonal's sum. An independent reference for
+    :class:`TrainCovarianceFn`'s backward (autograd through the plain
+    builder), exact for every kernel whose ``pointwise_grads`` are the
+    derivatives of its map — not Matern2 or Multiquadric, which keep the
+    reference's own formulas."""
+    grad_params = torch.sum(g * gradient_covariances_padded(kernel, x_pad, n, method), dim=(1, 2))
+    return grad_params, 2 * noise * torch.diagonal(g)[:n].sum()
+
+
+#: Entries of one row strip of :class:`TrainCovarianceFn`'s backward.
+BACKWARD_STRIP_ENTRIES = 1 << 22
+
+
+class TrainCovarianceFn(torch.autograd.Function):
+    """:func:`train_covariance_padded` of ``kernel.with_params(params)`` and
+    ``noise``, differentiable in ``params`` (the kernel's raw parameter
+    vector) and ``noise``; not in ``x_pad``.
+
+    Forward: the dispatch (the covariance-tile kernel on the card, the
+    plain builder on the CPU), with the parameters detached: the kernel's
+    wrapper reads them on the host. Backward: ``sum(G * K)`` over row
+    strips of the plain builder, differentiated by autograd, so that the
+    gradient is the exact derivative of the covariance (the analytic
+    diagonal and its ``2 noise`` included) for every kernel, and memory is
+    one strip of :data:`BACKWARD_STRIP_ENTRIES` entries, not ``p`` (cap, cap)
+    matrices. Call it as ``TrainCovarianceFn.apply(params, noise, kernel,
+    x_pad, n, method)``.
+    """
+
+    @staticmethod
+    def forward(ctx, params, noise, kernel, x_pad, n, method):
+        ctx.save_for_backward(params, noise)
+        ctx.kernel, ctx.x_pad, ctx.n, ctx.method = kernel, x_pad, n, method
+        return train_covariance_padded(kernel.with_params(params.detach()), x_pad, n,
+                                       noise.detach(), method=method)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        params, noise = ctx.saved_tensors
+        x_pad, n = ctx.x_pad, ctx.n
+        cap = x_pad.shape[0]
+        rows = max(1, BACKWARD_STRIP_ENTRIES // cap)
+        grad_params, grad_noise = torch.zeros_like(params), torch.zeros_like(noise)
+        with torch.enable_grad():
+            p = params.detach().requires_grad_(True)
+            nz = noise.detach().requires_grad_(True)
+            kernel = ctx.kernel.with_params(p)
+            for r0 in range(0, cap, rows):
+                block = plain_train_covariance_block(kernel, x_pad[r0:r0 + rows], x_pad, n, nz,
+                                                     row0=r0, method=ctx.method)
+                gp, gn = torch.autograd.grad(torch.sum(grad_out[r0:r0 + rows] * block), (p, nz))
+                grad_params += gp
+                grad_noise += gn
+        return grad_params, grad_noise, None, None, None, None

@@ -9,8 +9,9 @@ that leaf's map compiled in, its constants passed by value
 interprets its postfix program (:func:`~.build.encode_program`).
 
 The wrapper takes CUDA tensors only; it raises on anything the kernel does
-not take. Its plain PyTorch version is ``ops/covariance.py``'s
-``plain_*`` builders, which the dispatchers there use for CPU tensors.
+not take. Its plain PyTorch version, with its signature, is
+``ops/covariance.py``'s ``plain_covariance_tile`` (over the ``plain_*``
+builders, which the dispatchers there use for CPU tensors).
 """
 
 from __future__ import annotations

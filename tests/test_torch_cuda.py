@@ -173,3 +173,98 @@ def test_panel_strip_wrapper_refuses_what_the_kernel_does_not_take(card):
         pc.panel_strip(kern, x, x[:4], l_full.T, 8, 0.1, 0, 4)
     with pytest.raises(ValueError, match="fit"):
         pc.panel_strip(kern, x[6:], x[6:], l_full, 8, 0.1, 6, 4)
+
+
+@pytest.fixture
+def plain_on_card(monkeypatch):
+    """A function that makes every covariance build and panel strip on the
+    card run its plain version (the kernels' counts then stay still)."""
+    def swap():
+        monkeypatch.setattr(cc, "covariance", cov.plain_covariance_tile)
+        monkeypatch.setattr(pc, "panel_strip", panel_fused.plain_panel_strip)
+    return swap
+
+
+def _density_value_and_grad(logp, theta):
+    theta = theta.clone().requires_grad_(True)
+    val = logp(theta)
+    val.backward()
+    return float(val.detach()), theta.grad
+
+
+# float64: the kernels differ from their plain versions by rounding only
+@pytest.mark.parametrize("backend,cap", (("dense", 1024), ("streamed", 4096)))
+def test_density_matches_its_plain_version_on_the_card(card, plain_on_card, backend, cap):
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.mcmc.logprob import initial_signs, initial_theta, make_hyperparam_logprob
+
+    rng = np.random.default_rng(75)
+    x = rng.normal(size=(cap - 24, 6))
+    y = np.sin(x[:, 0]) + 0.1 * rng.normal(size=cap - 24)
+    gp = ft.GaussianProcess.new(ft.priors.ConstantPrior(c=0.0), KERNELS["Composite"], 0.5, None, x, y,
+                                dtype="float64", capacity=cap, device=card)
+    theta = initial_theta(gp.state) + 0.05
+    logp = make_hyperparam_logprob(gp.state, signs=initial_signs(gp.state), backend=backend)
+    before = (cc.LAUNCHES, pc.LAUNCHES)
+    val, grad = _density_value_and_grad(logp, theta)
+    assert (cc.LAUNCHES > before[0]) if backend == "dense" else (pc.LAUNCHES > before[1])
+    plain_on_card()
+    want_val, want_grad = _density_value_and_grad(logp, theta)
+    np.testing.assert_allclose(val, want_val, rtol=1e-9)
+    torch.testing.assert_close(grad, want_grad, rtol=1e-9, atol=1e-9)
+
+
+# The backward (autograd through the plain builder) against the analytic
+# gradient, a tree whose pointwise gradients are its map's derivatives:
+# float64 at 1e-10, float32 at rtol 1e-4.
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 0.0), (torch.float64, 1e-10, 1e-10)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("points", (1000, 1001))
+def test_covariance_backward_matches_the_analytic_gradient_on_the_card(card, points, dtype, rtol, atol):
+    rng = np.random.default_rng(76)
+    x = torch.as_tensor(rng.normal(size=(points, 5)), dtype=dtype, device=card)
+    g = torch.as_tensor(rng.normal(size=(points, points)), dtype=dtype, device=card)
+    kernel = (tk.Linear(c=0.4) * tk.SquaredExp(ls=0.9, ampl=1.3)
+              + tk.RationalQuadratic(alpha=1.5, ls=1.2)).to(dtype, card)
+    n = points - 37
+    p = kernel.get_params().clone().requires_grad_(True)
+    nz = torch.tensor(0.7, dtype=dtype, device=card, requires_grad=True)
+    before = cc.LAUNCHES
+    k = cov.TrainCovarianceFn.apply(p, nz, kernel, x, n, "gram")
+    assert cc.LAUNCHES == before + 1
+    got = torch.cat([t.reshape(-1) for t in torch.autograd.grad(torch.sum(g * k), (p, nz))])
+    want_p, want_n = cov.analytic_train_covariance_grads(kernel, x, n, 0.7, g)
+    torch.testing.assert_close(got, torch.cat([want_p, want_n.reshape(1)]), rtol=rtol, atol=atol)
+
+
+def test_polish_and_fit_map_on_the_card_run_the_panel_strip_kernel(card):
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.models.map_fit import polish_map
+
+    rng = np.random.default_rng(77)
+    x = rng.normal(size=(3000, 4))
+    y = np.sin(x[:, 0]) + 0.1 * rng.normal(size=3000)
+    gp = ft.GaussianProcess.new(ft.priors.ConstantPrior(c=0.0), tk.SquaredExp(ls=1.0, ampl=1.0), 0.3,
+                                None, x, y, dtype="float32", device=card)
+    before = pc.LAUNCHES
+    polished = ft.GaussianProcess(polish_map(gp.state, num_steps=3))
+    assert pc.LAUNCHES > before
+    assert polished.log_marginal_likelihood() >= gp.log_marginal_likelihood() - 1e-4 * abs(
+        gp.log_marginal_likelihood())
+    before = pc.LAUNCHES
+    gp.fit_map(num_steps=2)
+    assert pc.LAUNCHES > before and np.isfinite(gp.log_marginal_likelihood())
+
+
+def test_save_and_load_on_the_card_give_identical_predictions(card, tmp_path):
+    import friedrich_tpu_torch as ft
+
+    rng = np.random.default_rng(78)
+    x, y = rng.normal(size=(700, 3)), rng.normal(size=700)
+    gp = ft.GaussianProcess.new(ft.priors.ConstantPrior(c=0.0), KERNELS["SquaredExp"], 0.3, None, x, y,
+                                dtype="float32", capacity=800, device=card)
+    gp.save(tmp_path / "model")
+    loaded = ft.GaussianProcess.load(tmp_path / "model")  # on the default device, CUDA
+    xq = torch.as_tensor(rng.normal(size=(50, 3)), dtype=torch.float32, device=card)
+    assert all(torch.equal(a, b) for a, b in zip(loaded.predict_mean_variance(xq),
+                                                 gp.predict_mean_variance(xq)))

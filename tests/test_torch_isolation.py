@@ -36,6 +36,8 @@ def test_package_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import friedrich_tpu_torch, friedrich_tpu_torch.demo, friedrich_tpu_torch.interop\n"
         "import friedrich_tpu_torch.ops.cuda.covariance_cuda\n"
+        "import friedrich_tpu_torch.mcmc, friedrich_tpu_torch.models.map_fit\n"
+        "import friedrich_tpu_torch.models.large_fit, friedrich_tpu_torch.utils.serialization\n"
         "print('ok')\n"
     )
     out = subprocess.run(
