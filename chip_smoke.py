@@ -65,7 +65,29 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    version on three panels of the 20,000-point sub-model's streamed factor,
    ``polish_map`` on that sub-model (its exact LML must not drop) and ``fit_map(num_steps=3)`` on phase 4's
    50,512 model through the streamed density; (6d) save and load of the
-   sub-model, whose predictions must come back bit for bit.
+   sub-model, whose predictions must come back bit for bit;
+7. the hyperparameter samplers on the JAX package's sampler data
+   (``scripts/measure.py:474-482``: d=4, SquaredExp, noise 0.2, float32;
+   4 chains, 100 warmup and 100 sampled transitions): (7a) NUTS
+   (``max_depth=6``) on the streamed density at n=4,096 with 64 Hutchinson
+   probes (``num_probes=64`` of ``sample_hyperparameters``, whose default
+   is 16; the panel-strip kernel), (7b) NUTS and HMC (16 leapfrogs, 50 + 50
+   transitions) on the dense density at n=1,024 (the covariance kernel),
+   each run counted as a main path (kernel launches, density
+   evaluations), gated (finite draws on the card, at most 5 % divergent,
+   split R-hat below 1.1 per parameter) and timed
+   (transitions/s and ESS/s over the whole run, seconds per evaluation
+   apart, peak memory, the device idle share of 5 more transitions under
+   ``torch.profiler``); (7c) ``predictive_mixture`` over 32 of 7a's draws
+   on 1,024 queries and ``sample_predictive`` with given indices and
+   normals on 64 of them, against the same calls with the plain versions
+   on the card (the samples' distance from a float64 run printed beside
+   it; the samples again on a float64 copy of the model);
+   (7d) the covariance kernel at 1,024^2, 4,096^2 and cross 4,096 x 1,024
+   and the panel-strip kernel on the panels of 7a's density factor against
+   their plain versions, timed beside their bounds; and NUTS on a 5-D
+   anisotropic Gaussian on the card, whose moments must lie within 5
+   Monte-Carlo standard errors of the analytic ones.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 JSON line describing each kernel, and ``{"ok": true, "device": ...}``.
@@ -1465,6 +1487,427 @@ def phase_save_load(sub_gp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the hyperparameter samplers on the card
+# ---------------------------------------------------------------------------
+
+#: The sampler's data and settings (``scripts/measure.py:474-482``, where
+#: the JAX package measured it): d = 4, SquaredExp(ls=1, ampl=1), noise 0.2,
+#: zero prior, float32, NUTS ``max_depth=6``, 4 chains.
+SAMPLER_D, SAMPLER_CHAINS, SAMPLER_MAX_DEPTH = 4, 4, 6
+SAMPLER_WARMUP, SAMPLER_SAMPLES, HMC_LEAPFROG = 100, 100, 16
+#: HMC's run is cut to 50 + 50 to hold phase 7 near its time budget: at
+#: 100 + 100 it took 74 s (16 evaluations per transition) and its ESS was at
+#: the estimator's cap.
+HMC_WARMUP, HMC_SAMPLES = 50, 50
+#: Hutchinson probes of 7a's streamed density (``num_probes`` of
+#: ``sample_hyperparameters``), not the entry point's default of 16 (the JAX
+#: package's): with 16 the gradient's trace error at n = 4,096 holds the
+#: adapted step at 0.045, the trees at depth 5.1 and split R-hat at 1.14
+#: over 100 + 100 transitions; 64 probes cost 6 % more per evaluation and
+#: give step 0.37, depth 2.3 and R-hat 1.05 in a third of the time
+#: (PERF.md, phase 7).
+SAMPLER_PROBES = 64
+#: Gates of every sampler run: at most 5 % divergent transitions, split
+#: R-hat below 1.1 for each parameter.
+MAX_DIVERGENCE_RATE, MAX_RHAT = 0.05, 1.1
+#: The predictive on the card against its plain version:
+#: ``|got - want| <= atol + rtol |want|``, the mixture and the samples in
+#: float32: the kernels' rounding (2e-5 relative at most) passes through a
+#: float32 factorization of a 4,096^2 K whose condition number is ~1e4
+#: (noise^2 = 0.04 against eigenvalues up to ~n ampl / 4), so 1e-3. The
+#: samples also pass through the Cholesky factor of a posterior covariance
+#: that is numerically singular in float32 (variances down to ~2e-5; its
+#: 1e-10 jitter is below float32's rounding), whose factor is fixed only to
+#: ~sqrt(eps) in its null directions: the phase prints each draw's distance
+#: from a float64 plain run of the same draws, the card's and the plain
+#: version's, to show how far float32 itself is off there.
+PREDICTIVE_ATOL, PREDICTIVE_RTOL = 1e-3, 1e-3
+#: An extra check in float64, at queries spread by 1.5 so that the
+#: posterior covariance factors: float64 rounding (1e-16) amplified by
+#: ~1e6 stays within 1e-8.
+SAMPLES_ATOL, SAMPLES_RTOL = 1e-8, 1e-8
+
+
+class CountingDensity:
+    """A density that counts its evaluations (each one also gives the
+    gradient: the samplers differentiate every evaluation)."""
+
+    def __init__(self, logp):
+        self.logp, self.calls = logp, 0
+
+    def __call__(self, theta):
+        self.calls += 1
+        return self.logp(theta)
+
+
+def sampler_model(n: int, dtype: str = "float32"):
+    """The sampler's GP at ``n`` points (``scripts/measure.py:474-482``):
+    x ~ N(0, 1) in 4 dimensions and y = sin(x0) + 0.1 N(0, 1) from
+    ``default_rng(0)``, float32 (or ``dtype``), capacity n, on the card."""
+    import friedrich_tpu_torch as ft
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, SAMPLER_D)).astype(np.float32)
+    y = np.sin(x[:, 0]) + 0.1 * rng.normal(size=(n,)).astype(np.float32)
+    return ft.GaussianProcess.new(ft.priors.ZeroPrior(), ft.kernels.SquaredExp(ls=1.0, ampl=1.0), 0.2,
+                                  None, x, y, dtype=dtype, device="cuda")
+
+
+def eval_seconds(logp, theta, reps: int = 5) -> float:
+    """Median wall-clock of one density+gradient evaluation at ``theta``,
+    after one warm-up, each ending in a synchronize."""
+    from friedrich_tpu_torch.mcmc._adapt import value_and_grad
+
+    val_grad = value_and_grad(logp)
+    val_grad(theta)
+    times = []
+    for _ in range(reps):
+        t0 = sync()
+        val_grad(theta)
+        times.append(sync() - t0)
+    return statistics.median(times)
+
+
+def profile_sampler(sample, logp, res) -> dict:
+    """Device time against wall-clock over 5 more transitions per chain of
+    a finished run (its adaptation, from its last draws) under
+    ``torch.profiler``: the sampler's device idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):  # the tracer's own start-up, outside the window
+        torch.zeros(1, device="cuda").add_(1.0)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        sample(logp, res.samples[-1], 1, num_samples=5, num_chains=SAMPLER_CHAINS,
+               step_size=res.step_size, inv_mass=res.inv_mass)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    if busy <= 0:
+        return {"wall_s": wall, "idle_share": "not measured (the profiler recorded no device time)"}
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall}
+
+
+def run_sampler(name: str, sample, logp, theta0, launch_kernel: str, num_warmup: int = SAMPLER_WARMUP,
+                num_samples: int = SAMPLER_SAMPLES, settings: dict | None = None,
+                **kwargs) -> tuple[dict, object, dict]:
+    """One sampler run as the phase's main path: every kernel count set to
+    0 just before it and read just after; its gates, then its numbers:
+    transitions/s and ESS/s over the whole run (warmup included), depth,
+    density evaluations, peak memory and the launches of ``launch_kernel``
+    (``"covariance_tile"`` or ``"panel_strip"``). ``settings`` labels the
+    run's density. Returns the numbers, the result and the covariance
+    kernel's launches by shape."""
+    import torch
+
+    from friedrich_tpu_torch.mcmc import ess, rhat
+
+    counted = CountingDensity(logp)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path; the kernels' launches are counted over this run only
+    reset_launches()
+    t0 = sync()
+    res = sample(counted, theta0, 0, num_warmup=num_warmup, num_samples=num_samples,
+                 num_chains=SAMPLER_CHAINS, **kwargs)
+    wall = sync() - t0
+    b1, b1_by_shape, b2 = read_launches()
+    # ---- end of the main path
+    samples = res.samples.double()
+    ess_v, rhat_v = ess(samples), rhat(samples)
+    transitions = SAMPLER_CHAINS * (num_warmup + num_samples)
+    divergent = getattr(res, "divergent", None)
+    depth = getattr(res, "tree_depth", None)
+    out = {
+        "run": name, **(settings or {}),
+        "wall_s": wall, "transitions": transitions, "transitions_per_s": transitions / wall,
+        "ess": ess_v.tolist(), "ess_min": float(ess_v.min()), "ess_min_per_s": float(ess_v.min()) / wall,
+        "rhat": rhat_v.tolist(), "step_size": float(res.step_size), "inv_mass": res.inv_mass.tolist(),
+        "mean_accept": float(res.accept_prob.double().mean()),
+        "divergence_rate": None if divergent is None else float(divergent.double().mean()),
+        "mean_tree_depth": None if depth is None else float(depth.double().mean()),
+        "density_evaluations": counted.calls, "evaluations_per_transition": counted.calls / transitions,
+        "posterior_mean": samples.reshape(-1, samples.shape[-1]).mean(0).tolist(),
+        "posterior_sd": samples.reshape(-1, samples.shape[-1]).std(0).tolist(),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "covariance_tile_launches": b1, "panel_strip_launches": b2,
+        "covariance_tile_launches_by_shape": {f"{k[0]}x{k[1]}{' train' if k[2] else ''}": v
+                                              for k, v in b1_by_shape.items()},
+    }
+    launches = b1 if launch_kernel == "covariance_tile" else b2
+    out[f"{launch_kernel}_launches_per_evaluation"] = launches / counted.calls
+    log(json.dumps({"sampler_run": out}))
+    if res.samples.device.type != "cuda":
+        fail(f"{name}: the draws are on {res.samples.device}, not on the card")
+    if not bool(torch.isfinite(res.samples).all()):
+        fail(f"{name}: non-finite draws")
+    if launches <= 0:
+        fail(f"{name}: the {launch_kernel} kernel never launched")
+    if divergent is not None and not out["divergence_rate"] <= MAX_DIVERGENCE_RATE:
+        fail(f"{name}: divergence rate {out['divergence_rate']} above {MAX_DIVERGENCE_RATE}")
+    if not bool((rhat_v < MAX_RHAT).all()):
+        fail(f"{name}: split R-hat {rhat_v.tolist()} not below {MAX_RHAT}")
+    return out, res, b1_by_shape
+
+
+def phase_sampler_streamed() -> tuple[dict, object, object]:
+    """7a: NUTS on the streamed density (the panel-strip kernel) at
+    n = 4,096, capacity 4,096."""
+    import inspect
+
+    from friedrich_tpu_torch.mcmc import (
+        initial_signs,
+        initial_theta,
+        make_hyperparam_logprob,
+        sample_hyperparameters,
+        sample_nuts,
+    )
+    from friedrich_tpu_torch.mcmc.logprob import STREAMED_LOGPROB_THRESHOLD
+
+    n = 4096
+    log(f"== phase 7a: NUTS on the streamed density ({SAMPLER_PROBES} probes), n={n}, capacity {n}, "
+        f"d={SAMPLER_D}, float32, {SAMPLER_CHAINS} chains, max_depth {SAMPLER_MAX_DEPTH}, "
+        f"{SAMPLER_WARMUP}+{SAMPLER_SAMPLES}")
+    gp = sampler_model(n)
+    state = gp.state
+    if not state.capacity > STREAMED_LOGPROB_THRESHOLD:
+        fail(f"capacity {state.capacity} would not take the streamed density")
+    # the density of sample_hyperparameters(gp, ..., num_probes=SAMPLER_PROBES)
+    logp = make_hyperparam_logprob(state, signs=initial_signs(state), num_probes=SAMPLER_PROBES)
+    default = inspect.signature(sample_hyperparameters).parameters["num_probes"].default
+    theta0 = initial_theta(state)
+    out, res, _ = run_sampler(f"7a NUTS, streamed density, num_probes={SAMPLER_PROBES}", sample_nuts, logp,
+                              theta0, "panel_strip", max_depth=SAMPLER_MAX_DEPTH,
+                              settings={"num_probes": SAMPLER_PROBES, "num_probes_of_the_entry_point": default})
+    out["seconds_per_evaluation"] = eval_seconds(logp, res.samples[-1, 0])
+    out["profile"] = profile_sampler(sample_nuts, logp, res)
+    log(json.dumps({"sampler_streamed": {k: out[k] for k in ("seconds_per_evaluation", "profile")}}))
+    return out, gp, res
+
+
+def phase_sampler_dense() -> tuple[dict, dict, object, dict]:
+    """7b: NUTS, then HMC, on the dense density (the covariance-tile
+    kernel) at n = 1,024. Returns both runs' numbers, the model and the
+    covariance kernel's launches by shape over both runs."""
+    from friedrich_tpu_torch.mcmc import (
+        initial_signs,
+        initial_theta,
+        make_hyperparam_logprob,
+        sample_hmc,
+        sample_nuts,
+    )
+
+    n = 1024
+    log(f"== phase 7b: NUTS ({SAMPLER_WARMUP}+{SAMPLER_SAMPLES}) and HMC ({HMC_WARMUP}+{HMC_SAMPLES}) on "
+        f"the dense density, n={n}, d={SAMPLER_D}, float32, {SAMPLER_CHAINS} chains")
+    gp = sampler_model(n)
+    state = gp.state
+    logp = make_hyperparam_logprob(state, signs=initial_signs(state))
+    theta0 = initial_theta(state)
+    nuts, res, by_shape = run_sampler("7b NUTS, dense density", sample_nuts, logp, theta0,
+                                      "covariance_tile", max_depth=SAMPLER_MAX_DEPTH)
+    nuts["seconds_per_evaluation"] = eval_seconds(logp, res.samples[-1, 0])
+    nuts["profile"] = profile_sampler(sample_nuts, logp, res)
+    log(json.dumps({"sampler_dense_nuts": {k: nuts[k] for k in ("seconds_per_evaluation", "profile")}}))
+    hmc, _, hmc_by_shape = run_sampler("7b HMC, dense density", sample_hmc, logp, theta0,
+                                       "covariance_tile", num_warmup=HMC_WARMUP,
+                                       num_samples=HMC_SAMPLES, num_leapfrog=HMC_LEAPFROG)
+    if not hmc["mean_accept"] > 0.5:
+        fail(f"7b HMC: mean acceptance {hmc['mean_accept']} not above 0.5")
+    return nuts, hmc, gp, {k: by_shape.get(k, 0) + hmc_by_shape.get(k, 0)
+                           for k in {*by_shape, *hmc_by_shape}}
+
+
+def phase_predictive(gp, res) -> tuple[dict, dict]:
+    """7c: ``predictive_mixture`` over 32 of 7a's draws on 1,024 queries and
+    ``sample_predictive`` with given indices and normals on 64 of them, both
+    on 7a's float32 model, each against the same call with the plain
+    versions on the card, and the float32 samples' distance from a float64
+    plain run of the same draws. Then ``sample_predictive`` on a float64 copy of the
+    model at spread queries against its plain version. Returns the numbers
+    and the covariance kernel's launches by shape."""
+    import torch
+
+    from friedrich_tpu_torch.mcmc import predictive_mixture, sample_predictive
+
+    log("== phase 7c: the predictive mixture over 32 of 7a's draws, 1,024 queries, and 16 predictive "
+        "samples on 64 of them, float32; the same samples in float64 at spread queries")
+    rng = np.random.default_rng(1)
+    xq = torch.as_tensor(rng.normal(size=(1024, SAMPLER_D)), dtype=torch.float32, device="cuda")
+    xq_s = xq[:64]
+    xq_far = xq_s.double() * 1.5  # spread out: a posterior covariance that factors in float64
+    indices, z = rng.integers(0, res.samples.shape[0] * SAMPLER_CHAINS, size=16), rng.normal(size=(16, 64))
+    state, state_f64 = gp.state, sampler_model(gp.state.n, "float64").state
+
+    def run():
+        mean, var = predictive_mixture(state, res.samples, xq, max_draws=32, chunk_size=4)
+        return (mean, var, sample_predictive(state, res.samples, xq_s, indices=indices, z=z),
+                sample_predictive(state_f64, res.samples, xq_far, indices=indices, z=z))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path; the kernels' launches are counted over this run only
+    reset_launches()
+    t0 = sync()
+    got = run()
+    wall = sync() - t0
+    b1, b1_by_shape, b2 = read_launches()
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    reset_launches()
+    with plain_versions():
+        t0 = sync()
+        want = run()
+        plain_wall = sync() - t0
+        # the float32 samples' draws, plain, in float64
+        exact = sample_predictive(state_f64, res.samples, xq_s.double(), indices=indices, z=z)
+    if read_launches() != (0, {}, 0):
+        fail("a kernel launched inside plain_versions()")
+    mean, var, draws, draws_f64 = got
+    errors = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    from_f64 = (draws.double() - exact).abs().amax(1), (want[2].double() - exact).abs().amax(1)
+    excesses = [excess(got[0], want[0], PREDICTIVE_ATOL, PREDICTIVE_RTOL),
+                excess(got[1], want[1], PREDICTIVE_ATOL, PREDICTIVE_RTOL),
+                excess(got[2], want[2], PREDICTIVE_ATOL, PREDICTIVE_RTOL),
+                excess(got[3], want[3], SAMPLES_ATOL, SAMPLES_RTOL)]
+    out = {
+        "wall_s": wall, "plain_wall_s": plain_wall, "draws": 32, "queries": xq.shape[0],
+        "peak_bytes": peak, "covariance_tile_launches": b1, "panel_strip_launches": b2,
+        "covariance_tile_launches_by_shape": {f"{k[0]}x{k[1]}{' train' if k[2] else ''}": v
+                                              for k, v in b1_by_shape.items()},
+        "max_abs_err_vs_plain": {"mean": errors[0], "variance": errors[1], "samples_f32": errors[2],
+                                 "samples_f64": errors[3]},
+        "samples_f32_vs_float64_per_draw": {"card": from_f64[0].tolist(), "plain": from_f64[1].tolist()},
+        "var_min": float(var.min()), "mean_abs_max": float(mean.abs().max()),
+        "tolerance": f"mixture and samples (float32) atol {PREDICTIVE_ATOL} + rtol {PREDICTIVE_RTOL}; "
+                     f"samples (float64) atol {SAMPLES_ATOL} + rtol {SAMPLES_RTOL}",
+    }
+    log(json.dumps({"predictive": out}))
+    if b1 <= 0:
+        fail("the predictive never launched the covariance kernel")
+    if mean.shape != (1024,) or draws.shape != (16, 64) or draws_f64.shape != (16, 64):
+        fail(f"unexpected shapes {tuple(mean.shape)} {tuple(draws.shape)} {tuple(draws_f64.shape)}")
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        fail("non-finite predictive mean, variance or samples")
+    if float(var.min()) < -1e-4:
+        fail(f"negative predictive variance {float(var.min())}")
+    if not max(excesses) <= 0:
+        fail(f"the predictive differs from its plain version: max errors {errors}")
+    return out, b1_by_shape
+
+
+def phase_sampler_kernels(gp_7a, res_7a, gp_7b, by_shape: dict, entries) -> None:
+    """7d: both kernels at the samplers' shapes against their plain
+    versions, with times and bounds: B1 in train mode at 1,024^2 and
+    4,096^2 and in cross mode at 4,096 x 1,024 (``by_shape``: the
+    launches of phases 7b and 7c by shape); B2 on the panels of 7a's
+    density factor at its posterior-mean hyperparameters. Adds the shapes
+    to the kernels' entries."""
+    import torch
+
+    from friedrich_tpu_torch.mcmc.logprob import initial_signs
+    from friedrich_tpu_torch.ops import covariance as cov
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda, panel_strip_cuda
+    from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
+    from friedrich_tpu_torch.ops.partition import panel_widths
+    from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
+
+    log("== phase 7d: the kernels at the samplers' shapes against their plain versions")
+    entry, streamed_entry = entries
+    state = gp_7a.state
+    theta = res_7a.samples.reshape(-1, res_7a.samples.shape[-1]).mean(0)
+    raw = initial_signs(state) * torch.exp(theta)
+    kernel = state.kernel.with_params(raw[:-1]).to(torch.float32, "cpu")
+    noise = float(torch.abs(raw[-1]))
+    xq = torch.as_tensor(np.random.default_rng(1).normal(size=(1024, SAMPLER_D)), dtype=torch.float32,
+                         device="cuda")
+    x_7b = gp_7b.state.x
+    cases = {
+        "train 1024^2": (x_7b, x_7b, gp_7b.state.n, True, "7b"),
+        "train 4096^2": (state.x, state.x, state.n, True, "7c"),
+        "cross 4096 x 1024": (state.x, xq, state.n, False, "7c"),
+    }
+    rows = []
+    for label, (x1, x2, n, train, flow) in cases.items():
+        got = covariance_cuda.covariance(kernel, x1, x2, n, noise if train else 0.0, train=train)
+        want = cov.plain_covariance_tile(kernel, x1, x2, n, noise if train else 0.0, train=train)
+        over = excess(got, want, ATOL_F32, RTOL_F32)
+        err = float((got - want).abs().max())
+        del got, want
+        if not over <= 0:
+            fail(f"the covariance kernel differs from its plain version at {label}: max error {err}")
+        row = shape_time(label, kernel, x1, x2, n, train, noise, by_shape[flow])
+        row["plain_ms"] = cuda_ms(lambda: cov.plain_covariance_tile(
+            kernel, x1, x2, n, noise if train else 0.0, train=train))
+        row.update({"max_abs_err": err, "flow": f"sampler phase {flow}"})
+        rows.append(row)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    log(json.dumps({"covariance_tile_times": rows}))
+    entry["shapes"].extend(rows)
+
+    # B2 on the panels of the density's factor at 7a's posterior mean
+    widths = panel_widths(state.capacity)
+    kernel_dev = kernel.to(torch.float32, "cuda")
+    l_full, ok = streamed_cholesky_factor(kernel_dev, state.x, state.n, torch.tensor(noise, device="cuda"))
+    if not bool(ok):
+        fail("the streamed factorization at 7a's posterior mean failed")
+    err = check_panels(kernel_dev, state.x, state.n, noise, l_full, widths,
+                       f"7a's density factor (capacity {state.capacity})")
+    streamed_entry["max_abs_err"] = max(streamed_entry["max_abs_err"], err)
+    j0, block = widths[0], widths[-1]
+    rest = state.capacity - j0
+    args = (kernel, state.x[j0:], state.x[j0:j0 + block], l_full, state.n, noise, j0, block)
+    k_strip = cov.plain_train_covariance_block(kernel, state.x[j0:], state.x[j0:j0 + block], state.n,
+                                               noise, row0=j0, col0=j0)
+    l_tail, l_rows = l_full[j0:, :j0], l_full[j0:j0 + block, :j0]
+    bound, bound_by = strip_bound_ms(rest, block, j0, SAMPLER_D, 4, TF32_FLOPS / 3)
+    row = {"shape": f"last panel j0={j0} B={block} of capacity {state.capacity}, d={SAMPLER_D}",
+           "ms": cuda_ms(lambda: panel_strip_cuda.panel_strip(*args), reps=10),
+           "plain_ms": cuda_ms(lambda: plain_panel_strip(*args), reps=10),
+           "library_ms": cuda_ms(lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1), reps=10),
+           "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err, "flow": "sampler phase 7a",
+           "launches_per_evaluation": len(widths)}
+    log(json.dumps({"panel_strip_times": [row]}))
+    streamed_entry.setdefault("shapes", []).append(row)
+    del l_full, k_strip, l_tail, l_rows, args
+    torch.cuda.empty_cache()
+
+
+def phase_sampler_sanity() -> dict:
+    """NUTS on a 5-D anisotropic Gaussian (scales 0.01 to 10) on the card,
+    no GP: each mean and variance within 5 Monte-Carlo standard errors of
+    the analytic one, which separates a sampler fault on the card from a
+    density fault."""
+    import torch
+
+    from friedrich_tpu_torch.mcmc import ess, sample_nuts
+
+    log("== phase 7 sanity: NUTS on a 5-D anisotropic Gaussian on the card")
+    scales = torch.tensor([0.01, 0.1, 1.0, 3.0, 10.0], device="cuda")
+    t0 = sync()
+    res = sample_nuts(lambda x: -0.5 * torch.sum((x / scales) ** 2), torch.zeros(5, device="cuda"), 3,
+                      num_warmup=200, num_samples=300, num_chains=2, max_depth=6)
+    wall = sync() - t0
+    x = res.samples.double()
+    worst = 0.0
+    for f, truth in ((x, torch.zeros(5, dtype=torch.float64, device="cuda")),
+                     (x * x, (scales.double() ** 2))):
+        mcse = f.reshape(-1, 5).std(0) / torch.sqrt(ess(f))
+        worst = max(worst, float(((f.reshape(-1, 5).mean(0) - truth).abs() / mcse).max()))
+    out = {"wall_s": wall, "worst_error_in_mcse": worst, "step_size": float(res.step_size),
+           "mean_tree_depth": float(res.tree_depth.double().mean()), "ess": ess(x).tolist()}
+    log(json.dumps({"sampler_sanity": out}))
+    if not worst <= 5.0:
+        fail(f"NUTS on the anisotropic Gaussian misses an analytic moment by {worst} standard errors")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--n", type=int, default=50_000,
@@ -1512,6 +1955,19 @@ def main() -> int:
     del sub_gp
     torch.cuda.empty_cache()
     log(f"phase 6 took {time.perf_counter() - t6} s")
+    t7 = time.perf_counter()
+    sampled_7a, gp_7a, res_7a = phase_sampler_streamed()
+    streamed_entry["launches_sampler_7a"] = sampled_7a["panel_strip_launches"]
+    nuts_7b, hmc_7b, gp_7b, by_shape_7b = phase_sampler_dense()
+    entry["launches_sampler_7b_nuts"] = nuts_7b["covariance_tile_launches"]
+    entry["launches_sampler_7b_hmc"] = hmc_7b["covariance_tile_launches"]
+    predictive, by_shape_7c = phase_predictive(gp_7a, res_7a)
+    entry["launches_predictive_7c"] = predictive["covariance_tile_launches"]
+    phase_sampler_kernels(gp_7a, res_7a, gp_7b, {"7b": by_shape_7b, "7c": by_shape_7c},
+                          (entry, streamed_entry))
+    del gp_7a, gp_7b, res_7a
+    phase_sampler_sanity()
+    log(f"phase 7 took {time.perf_counter() - t7} s")
     log(smi_line())
     log(json.dumps({"kernels": [entry, streamed_entry]}))
     log(json.dumps({"ok": True, "device": {

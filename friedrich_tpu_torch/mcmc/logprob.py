@@ -25,7 +25,7 @@ import torch
 
 from ..config import MATMUL_PRECISION_MODES, matmul_precision
 from ..models.gp import GPState
-from ..ops.cholesky import cho_solve, cholesky_with_substitute_functional, solve_lower, solve_lower_t
+from ..ops.cholesky import cholesky_with_substitute_functional, solve_lower, solve_lower_t
 from ..ops.covariance import TrainCovarianceFn
 from ..ops.streamed import streamed_cholesky_factor
 from ..ops.streamed_matvec import rademacher_probes, streamed_grad_matvec
@@ -161,9 +161,10 @@ class _StreamedDensity:
             _, kernel, noise = self._raw(theta)
             l_pad, ok = streamed_cholesky_factor(kernel, self.x_pad, self.n, noise, eps=self.eps,
                                                  method=self.method)
-            ol = solve_lower(l_pad, self.resid)
-            alpha = solve_lower_t(l_pad, ol)
-            kinv_z = cho_solve(l_pad, self.probes)
+            # the residuals and the probes in one pair of triangular solves
+            half = solve_lower(l_pad, torch.cat([self.resid[:, None], self.probes], dim=1))
+            sol = solve_lower_t(l_pad, half)
+            ol, alpha, kinv_z = half[:, 0], sol[:, 0], sol[:, 1:]
             logdet = 2.0 * torch.sum(torch.where(self.live, torch.log(torch.diagonal(l_pad)), 0.0))
             del l_pad
             lml = -(torch.sum(ol * ol) + logdet + self.n * LOG_2PI) / 2.0
@@ -177,11 +178,12 @@ class _StreamedDensity:
         hyperprior."""
         with self.scope():
             raw, kernel, noise = self._raw(theta)
-            dk_alpha = streamed_grad_matvec(kernel, self.x_pad, self.n, alpha, method=self.method)
-            data_terms = dk_alpha @ alpha
-            dk_z = streamed_grad_matvec(kernel, self.x_pad, self.n, self.probes,
+            # alpha and the probes in one streamed pass over dK
+            dk_v = streamed_grad_matvec(kernel, self.x_pad, self.n,
+                                        torch.cat([alpha[:, None], self.probes], dim=1),
                                         method=self.method)
-            trace_terms = torch.mean(torch.einsum("is,pis->ps", kinv_z, dk_z), dim=1)
+            data_terms = dk_v[:, :, 0] @ alpha
+            trace_terms = torch.mean(torch.einsum("is,pis->ps", kinv_z, dk_v[:, :, 1:]), dim=1)
             grad_kernel_raw = (data_terms - trace_terms) / 2.0
             tr_kinv = torch.mean(torch.einsum("is,is->s", self.probes, kinv_z))
             grad_noise_raw = noise * (torch.dot(alpha, alpha) - tr_kinv)

@@ -282,12 +282,15 @@ class GaussianProcess:
         max_iter: int = DEFAULT_MAX_ITER,
         convergence_fraction: float = DEFAULT_CONVERGENCE_FRACTION,
         max_time: float = DEFAULT_MAX_TIME,
+        fit_log=None,
         gradient: str = "auto",
         num_probes: int = 8,
         seed: int = 0,
         subsample=None,
     ) -> None:
-        """Refit prior/kernel/noise (``mod.rs:406-445``). ``gradient``:
+        """Refit prior/kernel/noise (``mod.rs:406-445``). Pass a
+        :class:`~friedrich_tpu_torch.utils.fitlog.FitLog` as ``fit_log`` for
+        a record per iteration. ``gradient``:
         ``"exact"``, ``"hutchinson"`` or ``"auto"`` (Hutchinson above
         capacity 8,192), ``num_probes`` and ``seed`` the Hutchinson
         estimator's probes; ``subsample``: fit the hyperparameters on a
@@ -300,6 +303,7 @@ class GaussianProcess:
             max_iter=max_iter,
             convergence_fraction=convergence_fraction,
             max_time=max_time,
+            fit_log=fit_log,
             gradient=gradient,
             num_probes=num_probes,
             seed=seed,

@@ -40,7 +40,7 @@ from ..ops.cholesky import cho_solve
 from ..ops.streamed_matvec import rademacher_probes, streamed_grad_matvec
 from ..utils.errors import CholeskyError, ConfigError
 from .gp import GPState, rebuild_cholesky, resolve_backend
-from .optimizer import AdamState, _adam_delta, _init_params
+from .optimizer import AdamState, _adam_delta, _init_params, log_iteration
 
 
 def make_probes(state: GPState, num_probes: int, seed: int) -> torch.Tensor:
@@ -54,10 +54,11 @@ def _grad_step_large(state: GPState, adam: AdamState, probes: torch.Tensor, i: i
                      convergence_fraction: float, scalable: bool):
     """Gradient terms and ADAM deltas from the CURRENT factor, no rebuild.
 
-    Returns ``(adam', kernel', noise', progress)`` where the primed values
-    already include this iteration's multiplicative update
+    Returns ``(adam', kernel', noise', progress, info)`` where the primed
+    values already include this iteration's multiplicative update
     (``optimizer.rs:113-122``) and, on the scaled path, the closed-form
-    rescale (``optimizer.rs:174,262-263``); ``progress`` is a bool."""
+    rescale (``optimizer.rs:174,262-263``); ``progress`` is a bool and
+    ``info`` carries ``max_delta`` and ``scale`` for the fit log."""
     sol = cho_solve(state.l, torch.cat([state.resid[:, None], probes], dim=1))
     alpha, kinv_z = sol[:, 0], sol[:, 1:]
     dk_v = streamed_grad_matvec(
@@ -74,6 +75,7 @@ def _grad_step_large(state: GPState, adam: AdamState, probes: torch.Tensor, i: i
         noise = state.noise * scale  # optimizer.rs:263 (NOT sqrt)
         adam = dataclasses.replace(adam, params=kernel.get_params())
     else:
+        scale = torch.ones((), dtype=alpha.dtype, device=alpha.device)
         grads_kernel = (data_fit - complexity) / 2.0
         # Hutchinson tr(K^-1) over the live block (probes are zero on dead
         # rows); log-space noise update (optimizer.rs:98-110)
@@ -82,8 +84,9 @@ def _grad_step_large(state: GPState, adam: AdamState, probes: torch.Tensor, i: i
         adam, delta = _adam_delta(adam, torch.cat([grads_kernel, noise_grad[None]]), i)
         kernel = state.kernel.with_params(adam.params[:-1])
         noise = torch.exp(adam.params[-1])
-    progress = bool(torch.max(torch.abs(delta)) > convergence_fraction)
-    return adam, kernel, noise, progress
+    max_delta = torch.max(torch.abs(delta))
+    return adam, kernel, noise, bool(max_delta > convergence_fraction), {"max_delta": max_delta,
+                                                                          "scale": scale}
 
 
 def check_fit_memory(state: GPState) -> None:
@@ -114,15 +117,17 @@ def fit_kernel_noise_large(
     num_probes: int = 8,
     seed: int = 0,
     probes: Optional[torch.Tensor] = None,
+    fit_log=None,
 ) -> tuple[GPState, int]:
     """Run the large-n ADAM fit until convergence / max_iter / max_time;
     returns the fitted state and the number of gradient steps taken.
 
     Dispatches on ``kernel.is_scalable`` like ``fit_parameters``
     (``mod.rs:434-444``). ``probes`` (cap, s) replaces the
-    :func:`make_probes` draw of ``num_probes`` and ``seed``. The input
-    state's factor buffer is overwritten by the first rebuild, so use the
-    returned state only; a failed rebuild raises :class:`CholeskyError`
+    :func:`make_probes` draw of ``num_probes`` and ``seed``; ``fit_log``
+    records each applied iteration (a converging step is not applied). The
+    input state's factor buffer is overwritten by the first rebuild, so use
+    the returned state only; a failed rebuild raises :class:`CholeskyError`
     and the state cannot be recovered (the reference panics here,
     ``algebra/mod.rs:90``).
     """
@@ -138,7 +143,7 @@ def fit_kernel_noise_large(
     t0 = time.monotonic()
     i = 0
     for i in range(1, max_iter + 1):
-        adam, kernel, noise, progress = _grad_step_large(
+        adam, kernel, noise, progress, info = _grad_step_large(
             state, adam, probes, i, convergence_fraction, scalable
         )
         if not progress:
@@ -152,6 +157,8 @@ def fit_kernel_noise_large(
                 "Cholesky decomposition failed during hyperparameter fitting; "
                 "consider setting `cholesky_epsilon`."
             )
+        if fit_log is not None:
+            log_iteration(fit_log, i, state, adam, info, scalable)
         if time.monotonic() - t0 > max_time:
             break
     return state, i

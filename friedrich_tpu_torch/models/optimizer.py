@@ -41,7 +41,7 @@ from ..config import (
 from ..ops.cholesky import cho_solve
 from ..ops.covariance import gradient_covariances_padded
 from ..utils.errors import CholeskyError
-from .gp import GPState, make_state, rebuild_cholesky
+from .gp import GPState, log_marginal_likelihood, make_state, rebuild_cholesky
 
 BETA1 = 0.9
 BETA2 = 0.999
@@ -89,7 +89,8 @@ def _generic_step(state: GPState, adam: AdamState, i: int, convergence_fraction:
     """One iteration of the non-scalable fit (``optimize_parameters``,
     ``optimizer.rs:69-149``). Parameter vector = kernel params + ln(noise).
 
-    Returns ``(state, adam, progress, ok)``."""
+    Returns ``(state, adam, progress, ok, info)``; ``info`` carries the
+    step's ``max_delta`` (and a unit ``scale``) for the fit log."""
     cov_inv, alpha = _inverse_and_alpha(state)
     data_fit, complexity = _per_param_grads(state, cov_inv, alpha)
     grads_kernel = (data_fit - complexity) / 2.0
@@ -105,26 +106,29 @@ def _generic_step(state: GPState, adam: AdamState, i: int, convergence_fraction:
 
     grads = torch.cat([grads_kernel, noise_grad[None]])
     adam, delta = _adam_delta(adam, grads, i)
-    progress = torch.max(torch.abs(delta)) > convergence_fraction
+    max_delta = torch.max(torch.abs(delta))
+    progress = max_delta > convergence_fraction
 
     kernel = state.kernel.with_params(adam.params[:-1])
     state = state.replace(kernel=kernel, noise=torch.exp(adam.params[-1]))
     state, ok = rebuild_cholesky(state)
-    return state, adam, progress, ok
+    return state, adam, progress, ok, {"max_delta": max_delta, "scale": torch.ones_like(max_delta)}
 
 
 def _scaled_step(state: GPState, adam: AdamState, i: int, convergence_fraction: float):
     """One iteration of the scaled fit (``scaled_optimize_parameters``,
     ``optimizer.rs:211-283``). Parameter vector = kernel params only.
 
-    Returns ``(state, adam, progress, ok)``."""
+    Returns ``(state, adam, progress, ok, info)``; ``info`` carries the
+    closed-form ``scale`` (``optimizer.rs:174``) and ``max_delta``."""
     cov_inv, alpha = _inverse_and_alpha(state)
     scale = torch.dot(state.resid, alpha) / state.n
     data_fit, complexity = _per_param_grads(state, cov_inv, alpha)
     grads = (data_fit / scale - complexity) / 2.0  # optimizer.rs:180-192
 
     adam, delta = _adam_delta(adam, grads, i)
-    progress = torch.max(torch.abs(delta)) > convergence_fraction
+    max_delta = torch.max(torch.abs(delta))
+    progress = max_delta > convergence_fraction
 
     kernel = state.kernel.with_params(adam.params)
     kernel = kernel.rescale(scale)  # optimizer.rs:262
@@ -132,7 +136,7 @@ def _scaled_step(state: GPState, adam: AdamState, i: int, convergence_fraction: 
     # read parameters back post-rescale (optimizer.rs:264)
     adam = dataclasses.replace(adam, params=kernel.get_params())
     state, ok = rebuild_cholesky(state.replace(kernel=kernel, noise=noise))
-    return state, adam, progress, ok
+    return state, adam, progress, ok, {"max_delta": max_delta, "scale": scale}
 
 
 def _init_params(vec: torch.Tensor) -> torch.Tensor:
@@ -165,12 +169,16 @@ def fit_kernel_noise(
     max_iter: int = DEFAULT_MAX_ITER,
     convergence_fraction: float = DEFAULT_CONVERGENCE_FRACTION,
     max_time: float = DEFAULT_MAX_TIME,
+    fit_log=None,
     gradient: str = "auto",
     num_probes: int = 8,
     seed: int = 0,
 ) -> tuple[GPState, int]:
     """Run the ADAM fit until convergence / max_iter / max_time; returns
-    the fitted state and the number of iterations run.
+    the fitted state and the number of iterations run. Pass a
+    :class:`~friedrich_tpu_torch.utils.fitlog.FitLog` as ``fit_log`` for a
+    record per iteration (its likelihood is the exact LML of the rebuilt
+    factor, one more solve per iteration).
 
     Dispatches on ``kernel.is_scalable`` exactly like ``fit_parameters``
     (``mod.rs:434-444``). ``gradient``: ``"exact"`` (the reference's dense
@@ -187,7 +195,7 @@ def fit_kernel_noise(
         from .large_fit import fit_kernel_noise_large
 
         return fit_kernel_noise_large(state, max_iter, convergence_fraction, max_time,
-                                      num_probes=num_probes, seed=seed)
+                                      num_probes=num_probes, seed=seed, fit_log=fit_log)
     scalable = state.kernel.is_scalable
     kparams = _init_params(state.kernel.get_params())
     if scalable:
@@ -201,15 +209,33 @@ def fit_kernel_noise(
     t0 = time.monotonic()
     i = 0
     for i in range(1, max_iter + 1):
-        state, adam, progress, ok = step(state, adam, i, convergence_fraction)
+        state, adam, progress, ok, info = step(state, adam, i, convergence_fraction)
         if not bool(ok):
             raise CholeskyError(
                 "Cholesky decomposition failed during hyperparameter fitting; "
                 "consider setting `cholesky_epsilon`."
             )
+        if fit_log is not None:
+            log_iteration(fit_log, i, state, adam, info, scalable)
         if (not bool(progress)) or (time.monotonic() - t0 > max_time):
             break
     return state, i
+
+
+def log_iteration(fit_log, i: int, state: GPState, adam: AdamState, info: dict,
+                  scalable: bool) -> None:
+    """One :class:`~friedrich_tpu_torch.utils.fitlog.FitRecord` for
+    iteration ``i``: the ADAM parameters, the noise, the scale (scaled path
+    only), the largest multiplicative step and the exact LML of ``state``'s
+    factor."""
+    fit_log.log(
+        iteration=i,
+        params=[float(v) for v in adam.params],
+        noise=float(state.noise),
+        scale=float(info["scale"]) if scalable else None,
+        max_delta=float(info["max_delta"]),
+        likelihood=float(log_marginal_likelihood(state)),
+    )
 
 
 def fit_prior_padded(state: GPState) -> GPState:
@@ -235,6 +261,7 @@ def fit_subsampled(
     max_iter: int = DEFAULT_MAX_ITER,
     convergence_fraction: float = DEFAULT_CONVERGENCE_FRACTION,
     max_time: float = DEFAULT_MAX_TIME,
+    fit_log=None,
     gradient: str = "auto",
     num_probes: int = 8,
     seed: int = 0,
@@ -251,7 +278,7 @@ def fit_subsampled(
     if s <= 0:
         raise ValueError(f"subsample must be positive, got {subsample}")
     if s >= n:
-        return fit_kernel_noise(state, max_iter, convergence_fraction, max_time,
+        return fit_kernel_noise(state, max_iter, convergence_fraction, max_time, fit_log=fit_log,
                                 gradient=gradient, num_probes=num_probes, seed=seed)
     idx = subset_indices(n, s, seed, state.x.device)
     x_sub = state.x[idx]
@@ -263,7 +290,7 @@ def fit_subsampled(
     if not bool(ok):
         raise CholeskyError()
     sub_state, iterations = fit_kernel_noise(
-        sub_state, max_iter, convergence_fraction, max_time, gradient=gradient,
+        sub_state, max_iter, convergence_fraction, max_time, fit_log=fit_log, gradient=gradient,
         num_probes=num_probes, seed=seed,
     )
     # the one full-n rebuild writes into the old factor's buffer
@@ -282,6 +309,7 @@ def fit_parameters(
     max_iter: int = DEFAULT_MAX_ITER,
     convergence_fraction: float = DEFAULT_CONVERGENCE_FRACTION,
     max_time: float = DEFAULT_MAX_TIME,
+    fit_log=None,
     gradient: str = "auto",
     num_probes: int = 8,
     seed: int = 0,
@@ -290,8 +318,9 @@ def fit_parameters(
     """Full fit dispatch, mirroring ``fit_parameters`` (``mod.rs:406-445``):
     optionally refit the prior (rebuilding the factor if the kernel is not
     also being fitted), then run the gradient fit, on a random subset when
-    ``subsample`` is given (``"auto"``: :func:`auto_subsample`). Returns
-    the state and the number of ADAM iterations run."""
+    ``subsample`` is given (``"auto"``: :func:`auto_subsample`); ``fit_log``
+    records each iteration. Returns the state and the number of ADAM
+    iterations run."""
     if subsample == "auto":
         subsample = auto_subsample(state.n)
     iterations = 0
@@ -307,12 +336,12 @@ def fit_parameters(
     if fit_kernel:
         if subsample is not None:
             state, iterations = fit_subsampled(
-                state, subsample, max_iter, convergence_fraction, max_time,
+                state, subsample, max_iter, convergence_fraction, max_time, fit_log=fit_log,
                 gradient=gradient, num_probes=num_probes, seed=seed,
             )
         else:
             state, iterations = fit_kernel_noise(
-                state, max_iter, convergence_fraction, max_time, gradient=gradient,
-                num_probes=num_probes, seed=seed,
+                state, max_iter, convergence_fraction, max_time, fit_log=fit_log,
+                gradient=gradient, num_probes=num_probes, seed=seed,
             )
     return state, iterations

@@ -44,7 +44,8 @@ def cho_solve(l_mat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky(k_mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain path: ``(L, ok)``, ``ok`` a 0-d bool tensor (finite factor).
+    """Plain path: ``(L, ok)``, ``ok`` a 0-d bool tensor (finite factor);
+    for a stack of matrices, one flag per matrix.
 
     ``torch.linalg.cholesky`` raises where JAX returns NaN, so this uses
     ``cholesky_ex`` and turns a failed factorization into NaN in place —
@@ -53,8 +54,8 @@ def cholesky(k_mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     flag (the reference panics, ``algebra/mod.rs:90``).
     """
     l_mat, info = torch.linalg.cholesky_ex(k_mat)
-    l_mat.mul_(torch.where(info == 0, 1.0, float("nan")))
-    return l_mat, torch.isfinite(torch.sum(l_mat))
+    l_mat.mul_(torch.where(info == 0, 1.0, float("nan"))[..., None, None])
+    return l_mat, torch.isfinite(torch.sum(l_mat, dim=(-2, -1)))
 
 
 def _unblocked_cholesky_substitute(a: torch.Tensor, eps) -> torch.Tensor:

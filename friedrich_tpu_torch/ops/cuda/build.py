@@ -19,11 +19,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import math
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import numpy as np
 
 from ...kernels import (
     Exponential,
@@ -131,20 +132,26 @@ def leaf_constants(op: int, params: list[float]) -> list[float]:
     """The constants of a leaf's compiled-in map (``leaf_map`` in
     ``csrc/program.cuh``), from its parameters in ``PARAM_FIELDS`` order:
     each quotient of parameters computed here, once per launch, in
-    float64."""
-    if op in (OPCODES[SquaredExp], OPCODES[Exponential]):
-        ls, ampl = params
-        return [abs(ampl), -1.0 / (2.0 * ls * ls)]
-    if op == OPCODES[Matern1]:
-        ls, ampl = params
-        return [abs(ampl), math.sqrt(3.0) / abs(ls)]
-    if op == OPCODES[Matern2]:
-        ls, ampl = params
-        return [abs(ampl), math.sqrt(5.0) / abs(ls), 5.0 / (3.0 * ls * ls)]
-    if op == OPCODES[RationalQuadratic]:
-        alpha, ls = params
-        return [-alpha, 1.0 / (2.0 * alpha * ls * ls)]
-    return list(params)
+    float64, with IEEE semantics (a zero lengthscale, which a sampler's
+    trajectory can reach by underflow, gives an infinite constant, as the
+    division on the card would, not an exception)."""
+    params = [np.float64(p) for p in params]
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        if op in (OPCODES[SquaredExp], OPCODES[Exponential]):
+            ls, ampl = params
+            consts = [abs(ampl), -1.0 / (2.0 * ls * ls)]
+        elif op == OPCODES[Matern1]:
+            ls, ampl = params
+            consts = [abs(ampl), np.sqrt(3.0) / abs(ls)]
+        elif op == OPCODES[Matern2]:
+            ls, ampl = params
+            consts = [abs(ampl), np.sqrt(5.0) / abs(ls), 5.0 / (3.0 * ls * ls)]
+        elif op == OPCODES[RationalQuadratic]:
+            alpha, ls = params
+            consts = [-alpha, 1.0 / (2.0 * alpha * ls * ls)]
+        else:
+            consts = params
+    return [float(c) for c in consts]
 
 
 def kernel_map(kernel) -> tuple[int, list[float]]:

@@ -11,6 +11,8 @@ kernel, so plain PyTorch (``torch.matmul`` for the products) is its port.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .distance import diag_features, pairwise_features
@@ -18,6 +20,10 @@ from .partition import pick_block
 
 #: Panel-width target of :func:`streamed_grad_matvec` (the JAX package's).
 DEFAULT_MATVEC_BLOCK = 1024
+#: Entries of one (cap, B) strip that the default panel width may reach
+#: (64 MB a strip in float32): a smaller capacity takes fewer, wider panels,
+#: each of them the same few dozen launches from the host.
+MATVEC_STRIP_ENTRIES = 1 << 24
 
 
 def rademacher_probes(cap: int, n: int, num_probes: int, seed: int, dtype,
@@ -33,7 +39,7 @@ def rademacher_probes(cap: int, n: int, num_probes: int, seed: int, dtype,
 
 
 def streamed_grad_matvec(kernel, x_pad: torch.Tensor, n: int, v: torch.Tensor,
-                         block: int = DEFAULT_MATVEC_BLOCK,
+                         block: Optional[int] = None,
                          method: str = "gram") -> torch.Tensor:
     """``(p, cap, m) = stack_p [dK_p @ V]`` with dK never materialized; a
     vector ``v`` gives ``(p, cap)``.
@@ -41,9 +47,12 @@ def streamed_grad_matvec(kernel, x_pad: torch.Tensor, n: int, v: torch.Tensor,
     Dead rows and columns of dK are zero (as in
     ``ops/covariance.gradient_covariances_padded``), so products over the
     full buffer equal the live ones. The panel width is ``block`` snapped
-    to a divisor of the capacity.
+    to a divisor of the capacity; by default the larger of
+    :data:`DEFAULT_MATVEC_BLOCK` and :data:`MATVEC_STRIP_ENTRIES` / cap.
     """
     cap = x_pad.shape[0]
+    if block is None:
+        block = max(DEFAULT_MATVEC_BLOCK, MATVEC_STRIP_ENTRIES // cap)
     b = pick_block(cap, block)
     v2 = v if v.ndim == 2 else v[:, None]
     rows = torch.arange(cap, device=x_pad.device)[:, None]

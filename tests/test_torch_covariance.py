@@ -278,6 +278,27 @@ def test_leaf_constants_give_the_jax_map(case):
             np.testing.assert_allclose(got, np.asarray(jk_.pointwise(fs)), rtol=1e-14, atol=1e-14)
 
 
+LS_LEAVES = [case for case in KERNELS[:9] if "ls" in case[2].PARAM_FIELDS]
+
+
+@pytest.mark.parametrize("case", LS_LEAVES, ids=[case[0] for case in LS_LEAVES])
+def test_leaf_constants_at_a_zero_lengthscale_give_the_jax_map(case):
+    # a sampler's trajectory can underflow a lengthscale to zero: the
+    # constants follow IEEE division (infinities, no exception), and the
+    # compiled-in formulas on them give the JAX package's map, NaN where it
+    # has NaN
+    _, jker, tker = case
+    x = np.random.default_rng(17).normal(size=(12, 3))
+    feats = jdist.pairwise_features(jnp.asarray(x), jnp.asarray(x), frozenset({DOT, SQDIST, DIST}))
+    values = {f: 0.0 if f == "ls" else float(getattr(jker, f)) for f in jker.PARAM_FIELDS}
+    op, consts = cc.kernel_map(type(tker)(**values))
+    f = {k: np.asarray(v) for k, v in feats.items()}
+    with np.errstate(all="ignore"):
+        got = _leaf_map(op, consts, f[DOT], f[SQDIST], f[DIST])
+    np.testing.assert_allclose(got, np.asarray(type(jker)(**values).pointwise(feats)), rtol=1e-14,
+                               atol=1e-14)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.zeros((4, 2), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):

@@ -268,3 +268,84 @@ def test_save_and_load_on_the_card_give_identical_predictions(card, tmp_path):
     xq = torch.as_tensor(rng.normal(size=(50, 3)), dtype=torch.float32, device=card)
     assert all(torch.equal(a, b) for a, b in zip(loaded.predict_mean_variance(xq),
                                                  gp.predict_mean_variance(xq)))
+
+
+def _sampler_density(card, backend):
+    """A GP density on the card: dense at capacity 512, streamed at 2,100
+    (above the 2,048 threshold); float64."""
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.mcmc.logprob import initial_signs, initial_theta, make_hyperparam_logprob
+
+    cap = 512 if backend == "dense" else 2100
+    rng = np.random.default_rng(79)
+    x = rng.normal(size=(cap - 12, 4))
+    y = np.sin(x[:, 0]) + 0.1 * rng.normal(size=cap - 12)
+    gp = ft.GaussianProcess.new(ft.priors.ZeroPrior(), tk.SquaredExp(ls=1.0, ampl=1.0), 0.2, None, x, y,
+                                dtype="float64", capacity=cap, device=card)
+    logp = make_hyperparam_logprob(gp.state, signs=initial_signs(gp.state))
+    return gp, logp, initial_theta(gp.state) + 0.05
+
+
+# float64: the kernels differ from their plain versions by rounding only,
+# over one transition's leapfrogs
+@pytest.mark.parametrize("backend", ("dense", "streamed"))
+def test_sampler_steps_match_their_plain_versions_on_the_card(card, plain_on_card, backend):
+    from friedrich_tpu_torch.mcmc import _adapt, hmc, nuts
+
+    _, logp, theta = _sampler_density(card, backend)
+    val_grad = _adapt.value_and_grad(logp)
+    inv_mass = torch.ones(3, dtype=torch.float64, device=card)
+
+    def steps():
+        logp0, g0 = val_grad(theta)
+        draws = _adapt.GeneratorDraws(torch.Generator().manual_seed(5))
+        t = nuts.transition(val_grad, theta, logp0, g0, 0.05, inv_mass, 6, draws)
+        h = hmc.hmc_step(val_grad, theta, logp0, g0, 0.05, inv_mass, 8, 0.2, draws)
+        return t, h
+
+    before = (cc.LAUNCHES, pc.LAUNCHES)
+    got = steps()
+    assert (cc.LAUNCHES > before[0]) if backend == "dense" else (pc.LAUNCHES > before[1])
+    assert got[0][0].device.type == "cuda" and got[0][4] >= 1
+    plain_on_card()
+    before = (cc.LAUNCHES, pc.LAUNCHES)
+    want = steps()
+    assert (cc.LAUNCHES, pc.LAUNCHES) == before
+    for g, w in zip(got, want):
+        assert g[4:] == w[4:]  # the transition's depth and divergence
+        for a, b in zip(g[:3], w[:3]):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(g[3], w[3], rtol=1e-9, atol=1e-12)
+
+
+def test_predictive_mixture_matches_its_plain_version_on_the_card(card, plain_on_card):
+    from friedrich_tpu_torch.mcmc import predictive_mixture, sample_predictive
+
+    gp, _, theta = _sampler_density(card, "dense")
+    rng = np.random.default_rng(80)
+    thetas = torch.as_tensor(theta.cpu().numpy() + 0.1 * rng.normal(size=(6, 2, 3)), device=card)
+    xq = torch.as_tensor(rng.normal(size=(300, 4)), device=card)
+    z = rng.normal(size=(5, 300))
+    before = cc.LAUNCHES
+    got = (*predictive_mixture(gp.state, thetas, xq, max_draws=8, chunk_size=3),
+           sample_predictive(gp.state, thetas, xq, indices=[0, 3, 5, 7, 11], z=z))
+    assert cc.LAUNCHES >= before + 8 * 2
+    plain_on_card()
+    before = cc.LAUNCHES
+    want = (*predictive_mixture(gp.state, thetas, xq, max_draws=8, chunk_size=3),
+            sample_predictive(gp.state, thetas, xq, indices=[0, 3, 5, 7, 11], z=z))
+    assert cc.LAUNCHES == before
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("backend", ("dense", "streamed"))
+def test_density_at_an_underflowed_lengthscale_on_the_card(card, backend):
+    # exp(-800) is 0 in float64: the kernels' host constants are then
+    # infinite (IEEE), and the density is evaluated, not an exception
+    _, logp, theta = _sampler_density(card, backend)
+    theta = theta.clone()
+    theta[0] = -800.0
+    val = logp(theta)
+    assert not bool(torch.isnan(val))

@@ -38,6 +38,10 @@ def test_package_imports_with_jax_blocked():
         "import friedrich_tpu_torch.ops.cuda.covariance_cuda\n"
         "import friedrich_tpu_torch.mcmc, friedrich_tpu_torch.models.map_fit\n"
         "import friedrich_tpu_torch.models.large_fit, friedrich_tpu_torch.utils.serialization\n"
+        "import friedrich_tpu_torch.mcmc.nuts, friedrich_tpu_torch.mcmc.hmc\n"
+        "import friedrich_tpu_torch.mcmc.predictive, friedrich_tpu_torch.mcmc.diagnostics\n"
+        "import friedrich_tpu_torch.utils.fitlog\n"
+        "from friedrich_tpu_torch.mcmc import sample_hyperparameters\n"
         "print('ok')\n"
     )
     out = subprocess.run(

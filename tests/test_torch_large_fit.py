@@ -109,15 +109,17 @@ def test_one_hutchinson_step_matches_jax(name):
     jadam, tadam = _adams(jstate, tstate, scalable)
     probes = jlf.make_probes(jstate, 8, 0)
     conv = 0.05
-    jadam2, jkernel, jnoise, jprogress, _ = jlf._grad_step_large(
+    jadam2, jkernel, jnoise, jprogress, jinfo = jlf._grad_step_large(
         jstate, jadam, probes, jnp.asarray(3), jnp.asarray(conv), scalable)
-    tadam2, tkernel, tnoise, tprogress = tlf._grad_step_large(
+    tadam2, tkernel, tnoise, tprogress, tinfo = tlf._grad_step_large(
         tstate, tadam, torch.as_tensor(np.array(probes)), 3, conv, scalable)
     for field in ("params", "m", "v"):
         np.testing.assert_allclose(getattr(tadam2, field).numpy(), np.asarray(getattr(jadam2, field)),
                                    rtol=RTOL_STEP)
     np.testing.assert_allclose(_params(tkernel, tnoise), _params(jkernel, jnoise), rtol=RTOL_STEP)
     assert tprogress == bool(jprogress)
+    for key in ("max_delta", "scale"):
+        np.testing.assert_allclose(float(tinfo[key]), float(jinfo[key]), rtol=RTOL_STEP)
 
 
 @pytest.mark.parametrize("name", ("scalable", "generic"))
@@ -129,9 +131,9 @@ def test_identity_probes_give_the_exact_step(name):
     _, tadam = _adams(jstate, tstate, scalable)
     probes = torch.eye(64, dtype=torch.float64) * np.sqrt(64)
     probes[48:] = 0.0
-    tadam_l, kernel_l, noise_l, _ = tlf._grad_step_large(tstate, tadam, probes, 1, 0.05, scalable)
+    tadam_l, kernel_l, noise_l, _, _ = tlf._grad_step_large(tstate, tadam, probes, 1, 0.05, scalable)
     step = topt._scaled_step if scalable else topt._generic_step
-    state_e, adam_e, _, ok = step(tstate, tadam, 1, 0.05)
+    state_e, adam_e, _, ok, _ = step(tstate, tadam, 1, 0.05)
     assert bool(ok)
     np.testing.assert_allclose(tadam_l.params.numpy(), adam_e.params.numpy(), rtol=1e-8)
     np.testing.assert_allclose(_params(kernel_l, noise_l), _params(state_e.kernel, state_e.noise),
@@ -168,7 +170,7 @@ def test_auto_gradient_dispatches_to_hutchinson_above_the_threshold(monkeypatch)
     monkeypatch.setattr(tlf, "fit_kernel_noise_large",
                         lambda *a, **k: calls.append(k) or real(*a, **k))
     fit, iterations = topt.fit_kernel_noise(tstate, 20, 0.05, 3600.0)
-    assert calls == [{"num_probes": 8, "seed": 0}] and iterations >= 1
+    assert calls == [{"num_probes": 8, "seed": 0, "fit_log": None}] and iterations >= 1
     # the same fit with its own probes, asked for by name
     _, tstate = _states("scalable", n=60, cap=70)
     named, _ = topt.fit_kernel_noise(tstate, 20, 0.05, 3600.0, gradient="hutchinson")
