@@ -87,12 +87,39 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    and the panel-strip kernel on the panels of 7a's density factor against
    their plain versions, timed beside their bounds; and NUTS on a 5-D
    anisotropic Gaussian on the card, whose moments must lie within 5
-   Monte-Carlo standard errors of the analytic ones.
+   Monte-Carlo standard errors of the analytic ones;
+8. past one float32 factor: (8a) ``scripts/check80k.py``'s flow and data
+   (d=8, noise 2.0, a 10,000-point sub-fit) with bf16 factor storage at
+   n=150,000, capacity 150,512 — where one float32 factor does not fit the
+   card and two bf16 factors do not either — then predict, append (a
+   rebuild into the factor's own buffer) and sample, with the launches of
+   the bf16-prefix panel-strip instantiation counted (and no other), the
+   variances inside [-1e-4, k(x, x)], the training-point correlation
+   above check80k.py's 0.1 and the query means' correlation with the
+   noise-free function above 0.5, and that instantiation against its plain version on three
+   panels, timed on the middle one beside its bound and ``torch.addmm`` on
+   the same bf16 operands, its downdate against float64 beside the
+   library's; (8b) float32 storage, bf16 storage and float32 with
+   precision "bf16" at capacity 100,512 with 8a's hyperparameters, one
+   after another: build times, each model's launches of its own
+   instantiation only, the bf16 models' predictions within 0.05 of the
+   float32 model's, and the single-pass instantiation against its plain
+   version on three panels and timed beside ``torch.addmm`` under
+   "medium"; (8c) ``OutOfCoreGP`` at n=100,000 with a bf16 host factor
+   (``scripts/check100k_outofcore.py``'s configuration: 22.7 GB of
+   page-locked host memory, panels of 8,192): the host's ``free -b``, the
+   link's copy rates, the factor's time, bytes up and down and host and
+   card peaks, predictions at 256 queries within 1e-3 of an on-card bf16
+   model of the same data; then a float32 host factor at n=50,000 within
+   5e-5 of the on-card streamed factor, the copy/kernel overlap of one
+   refactorization (``torch.profiler``), and one ``fit_generic``
+   iteration. Each host factor's first, middle and last panels hold B2's
+   explicit-prefix entry against its plain version.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 JSON line describing each kernel, and ``{"ok": true, "device": ...}``.
 ``--n`` and ``--streamed-n`` shrink the full-width phases (4 and 5b; 5c,
-5d, 6a and 6b) for a quick check.
+5d, 6a, 6b and 8b) for a quick check.
 """
 
 from __future__ import annotations
@@ -114,6 +141,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 
 #: Tolerances of the kernel against its plain version, held as
 #: ``|got - want| <= atol + rtol * |want|``. float64: the two differ only
@@ -214,12 +242,18 @@ def ptxas_table(report: str) -> dict:
             entry = f"cov_kernel<{dtypes[m.group(1)]},{methods[m.group(2)]},{maps[m.group(3)]}>"
             spill = 0
             continue
-        m = re.search(r"Compiling entry function '\w*?\d+(panel_strip_kernel|"
-                      r"panel_strip_tf32x3_kernel)I(\w*?)EEv", line)
+        m = re.search(r"Compiling entry function '\w*?\d+(panel_strip_kernel|panel_strip_tf32x3_kernel|"
+                      r"panel_strip_bf16_kernel)I(\w*?)EEv", line)
         if m:
-            args = (m.group(2).replace("Lb1E", ",tma").replace("Lb0E", ",cp.async")
-                    .replace("Li", "").replace("E", "").replace("f", "float,").replace("d", "double,"))
-            entry = f"{m.group(1)}<{args.replace(',,', ',').strip(',')}>"
+            raw = m.group(2)
+            parts = [dtypes[raw[0]]] if raw[0] in dtypes else []
+            parts += [methods[v] for v in re.findall(r"Li(\d+)E", raw)]
+            flags = re.findall(r"Lb([01])E", raw)
+            if flags:  # TMA, then (float32 tensor-core kernel) one pass
+                parts.append("tma" if flags[0] == "1" else "no_tma")
+            if len(flags) > 1:
+                parts.append("1pass" if flags[1] == "1" else "3xtf32")
+            entry = f"{m.group(1)}<{','.join(parts)}>"
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -607,49 +641,94 @@ def phase_full_width(n: int) -> tuple[dict, tuple]:
 UNIT_ROUNDOFF = {"float32": 2.0**-24, "float64": 2.0**-53}
 
 
-def abs_product(a, b, chunk: int = 4096):
-    """``|a| @ |b|^T`` accumulated over column chunks, so that no copy of a
-    whole (strided) factor block is made."""
+def chunked_product(a, b, dtype, chunk: int = 4096, absolute: bool = False, operand=None):
+    """``a @ b^T`` (``|a| @ |b|^T`` with ``absolute``) accumulated in
+    ``dtype`` over column chunks, each chunk passed through ``operand`` (if
+    given) and cast on its own, so that no copy of a whole (strided) factor
+    block is made."""
     import torch
 
-    out = torch.zeros((a.shape[0], b.shape[0]), dtype=a.dtype, device=a.device)
+    out = torch.zeros((a.shape[0], b.shape[0]), dtype=dtype, device=a.device)
     for k0 in range(0, a.shape[1], chunk):
-        out.addmm_(a[:, k0:k0 + chunk].abs(), b[:, k0:k0 + chunk].abs().mT)
+        ac, bc = a[:, k0:k0 + chunk], b[:, k0:k0 + chunk]
+        if operand is not None:
+            ac, bc = operand(ac), operand(bc)
+        ac, bc = ac.to(dtype), bc.to(dtype)
+        if absolute:
+            ac, bc = ac.abs(), bc.abs()
+        out.addmm_(ac, bc.mT)
     return out
 
 
-def strip_excess(got, want, l_full, j0: int, block: int, atol: float, rtol: float, unit: float,
+def abs_product(a, b, chunk: int = 4096):
+    """``|a| @ |b|^T`` in float32 (float64 for a float64 factor)."""
+    import torch
+
+    dtype = torch.float64 if a.dtype == torch.float64 else torch.float32
+    return chunked_product(a, b, dtype, chunk, absolute=True)
+
+
+def plain_strip_chunked(kernel, x_tail, xj, l_full, n_live: int, noise, j0: int, block: int,
+                        precision=None):
+    """``ops/panel_fused.plain_panel_strip`` (same arguments) with its
+    downdate chunked (:func:`chunked_product`): at full width a bfloat16
+    prefix upcast whole would not fit beside the factor. Operands as
+    ``ops/panel_fused.downdate_operand`` gives them."""
+    import torch
+
+    from friedrich_tpu_torch.ops.covariance import plain_train_covariance_block
+    from friedrich_tpu_torch.ops.panel_fused import downdate_operand
+
+    strip = plain_train_covariance_block(kernel, x_tail, xj, n_live, noise, row0=j0, col0=j0)
+    if j0 > 0:
+        p = l_full[j0:, :j0]
+        strip -= chunked_product(p, p[:block], torch.float32,
+                                 operand=lambda t: downdate_operand(t, torch.float32, precision))
+    return strip
+
+
+def strip_excess(got, want, prefix, block: int, atol: float, rtol: float, unit: float,
                  split: float) -> float:
     """Largest amount by which a panel strip misses its plain version beyond
-    atol + rtol |want| + (j0 u + split) (|L_tail| |L_rows|^T); <= 0 when
-    within. ``split``: the float32 kernel's 3xTF32 term
+    atol + rtol |want| + (C u + split) (|P| |P[:block]|^T), ``P`` the strip's
+    (rows, C) prefix (``L[j0:, :j0]`` in the factor); <= 0 when within.
+    ``split``: the float32 kernel's 3xTF32 term
     (``panel_strip_cuda.SPLIT_ERROR``), 0 in float64."""
-    if j0 == 0:
+    kdim = prefix.shape[1]
+    if kdim == 0:
         return excess(got, want, atol, rtol)
-    bound = abs_product(l_full[j0:, :j0], l_full[j0:j0 + block, :j0]).mul_(j0 * unit + split)
+    bound = abs_product(prefix, prefix[:block]).mul_(kdim * unit + split)
     bound.add_(want.abs(), alpha=rtol).add_(atol)
     return float(((got - want).abs() - bound).max())
 
 
-def check_panels(kernel, x_pad, n_live: int, noise, l_full, widths, where: str) -> float:
+def check_panels(kernel, x_pad, n_live: int, noise, l_full, widths, where: str,
+                 precision=None) -> float:
     """B2 against its plain version on the first, middle and last panels
-    of the float32 factor ``l_full`` (panel widths ``widths``), each within
-    :func:`strip_excess`'s tolerance; returns the largest error."""
+    of the factor ``l_full`` (panel widths ``widths``; float32, or bfloat16
+    for the bf16-prefix instantiation; ``precision="bf16"`` for the single
+    pass), each within :func:`strip_excess`'s tolerance; returns the
+    largest error."""
     import torch
 
     from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
     from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
 
+    kind = panel_strip_cuda.variant(x_pad.dtype, l_full.dtype, precision)
+    split = panel_strip_cuda.SPLIT_ERROR if kind == "tf32x3" else 0.0
     starts = np.cumsum((0,) + tuple(widths[:-1]))
     max_err = 0.0
     for p in (0, len(widths) // 2, len(widths) - 1):
         j0, block = int(starts[p]), widths[p]
         args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
-        got = panel_strip_cuda.panel_strip(*args)
-        want = plain_panel_strip(*args)
+        got = panel_strip_cuda.panel_strip(*args, precision=precision)
+        if kind == "tf32x3":
+            want = plain_panel_strip(*args)
+        else:
+            want = plain_strip_chunked(*args, precision=precision)
         err = float((got - want).abs().max())
-        over = strip_excess(got, want, l_full, j0, block, ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"],
-                            panel_strip_cuda.SPLIT_ERROR)
+        over = strip_excess(got, want, l_full[j0:, :j0], block, ATOL_F32, RTOL_F32,
+                            UNIT_ROUNDOFF["float32"], split)
         log(f"{where}, panel {p} [{j0}, {j0 + block}): max error {err}, excess over its tolerance {over}")
         max_err = max(max_err, err)
         if not over <= 0:
@@ -661,14 +740,17 @@ def check_panels(kernel, x_pad, n_live: int, noise, l_full, widths, where: str) 
 
 
 def strip_bound_ms(rest: int, block: int, j0: int, d: int, itemsize: int,
-                   downdate_flops: float) -> tuple[float, str]:
+                   downdate_flops: float, prefix_itemsize: int | None = None) -> tuple[float, str]:
     """Least time for one panel strip: the downdate's 2 rest B j0 operations
     at ``downdate_flops`` and (2d + 9) per entry for the map at the float32
-    rate, against the prefix blocks, the inputs and the strip moved once
-    over HBM. The float32 kernel's downdate is three TF32 products: pass
-    TF32_FLOPS / 3 for its tensor-core bound, FP32_FLOPS for the SIMT one."""
+    rate, against the prefix blocks (``prefix_itemsize`` bytes an entry,
+    default ``itemsize``), the inputs and the strip moved once over HBM. The
+    float32 kernel's downdate is three TF32 products: pass TF32_FLOPS / 3
+    for its tensor-core bound, FP32_FLOPS for the SIMT one; the single pass
+    TF32_FLOPS, the bfloat16 prefix BF16_FLOPS."""
     t_ops = (2 * rest * block * j0 / downdate_flops + (2 * d + 9) * rest * block / FP32_FLOPS) * 1e3
-    nbytes = (rest * j0 + block * j0 + rest * block + (rest + block) * d) * itemsize
+    pitem = itemsize if prefix_itemsize is None else prefix_itemsize
+    nbytes = (rest * j0 + block * j0) * pitem + (rest * block + (rest + block) * d) * itemsize
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -751,8 +833,8 @@ def phase_panel_strip_vs_plain() -> None:
                         what = f"panel strip {name} {method} {tname} cap={cap} j0={j0} B={block}"
                         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
                             fail(f"{what}: shape or non-finite")
-                        over = strip_excess(got, want, l_full, j0, block, a, r, UNIT_ROUNDOFF[tname],
-                                            split)
+                        over = strip_excess(got, want, l_full[j0:, :j0], block, a, r,
+                                            UNIT_ROUNDOFF[tname], split)
                         err = float((got - want).abs().max())
                         if not over <= 0:
                             fail(f"{what}: max error {err} beyond its tolerance by {over}")
@@ -1098,6 +1180,8 @@ def reset_launches() -> None:
     covariance_cuda.LAUNCHES = 0
     covariance_cuda.LAUNCHES_BY_SHAPE.clear()
     panel_strip_cuda.LAUNCHES = 0
+    for kind in panel_strip_cuda.LAUNCHES_BY_VARIANT:
+        panel_strip_cuda.LAUNCHES_BY_VARIANT[kind] = 0
 
 
 def read_launches() -> tuple[int, dict, int]:
@@ -1249,8 +1333,8 @@ def phase_full_n_refit(gp) -> dict:
             return out
         return wrapped
 
-    saved = large_fit.cho_solve, large_fit.streamed_grad_matvec, large_fit.rebuild_cholesky
-    large_fit.cho_solve = timed("solves", saved[0])
+    saved = large_fit._cho_solve, large_fit.streamed_grad_matvec, large_fit.rebuild_cholesky
+    large_fit._cho_solve = timed("solves", saved[0])
     large_fit.streamed_grad_matvec = timed("grad_matvec", saved[1])
     large_fit.rebuild_cholesky = timed("rebuild", saved[2])
     ptr = gp.state.l.data_ptr()
@@ -1262,7 +1346,7 @@ def phase_full_n_refit(gp) -> dict:
         gp.fit_parameters(fit_prior=False, fit_kernel=True, max_iter=2)
         total = sync() - t0
     finally:
-        large_fit.cho_solve, large_fit.streamed_grad_matvec, large_fit.rebuild_cholesky = saved
+        large_fit._cho_solve, large_fit.streamed_grad_matvec, large_fit.rebuild_cholesky = saved
     _, _, b2_launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     two_factors = 2 * cap * cap * 4
@@ -1908,12 +1992,550 @@ def phase_sampler_sanity() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: bf16 factor storage, the factor precision, out-of-core
+# ---------------------------------------------------------------------------
+
+#: scripts/check80k.py's configuration (check80k.py:49-57, 62-79): noise
+#: 2.0, a 10,000-point sub-fit, 100 iterations at 0.05.
+BF16_N, BF16_NOISE, BF16_SUBFIT = 150_000, 2.0, 10_000
+#: Tolerance of the bf16 models' predictions against the float32 model's
+#: (phase 8b; the JAX package's ladder, tests/test_bf16_storage.py:36-66).
+BF16_PREDICT_ATOL = 0.05
+#: scripts/check100k_outofcore.py's configuration: SquaredExp(0.5, 1),
+#: noise 2.5, panels of 8,192.
+OOC_N, OOC_BLOCK, OOC_NOISE, OOC_QUERIES, OOC_F32_N = 100_000, 8192, 2.5, 256, 50_000
+#: 8c's out-of-core models against the on-card ones, which differ from them
+#: in summation order only. bf16 predictions: the JAX package holds float32
+#: out-of-core against in-memory predictions at 2e-4
+#: (tests/test_outofcore_gp.py:39-46); a bf16 write-back can turn a
+#: summation-order difference into one ulp (2^-8 relative), so 5x that. The
+#: float32 factor: the JAX package's own bound (tests/test_outofcore.py:130).
+OOC_BF16_ATOL, OOC_F32_ATOL = 1e-3, 5e-5
+
+
+def bf16_data(n: int):
+    """``scripts/check80k.py``'s data at ``n`` points (d=8, seed 0,
+    y = sin(2.5 x0) + 0.5 cos(2 x1) + 2 N(0, 1), float32), then 512
+    appended points and 64 sample points from the same generator:
+    ``(x, y, queries, appended x, appended y, sample points)``."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, D)).astype(np.float32)
+    y = (np.sin(2.5 * x[:, 0]) + 0.5 * np.cos(2.0 * x[:, 1])
+         + BF16_NOISE * rng.normal(size=n)).astype(np.float32)
+    xq = rng.normal(size=(M_QUERIES, D)).astype(np.float32)
+    x_add = rng.normal(size=(K_ADD, D)).astype(np.float32)
+    y_add = (np.sin(2.5 * x_add[:, 0]) + 0.5 * np.cos(2.0 * x_add[:, 1])
+             + BF16_NOISE * rng.normal(size=K_ADD)).astype(np.float32)
+    x_sample = rng.normal(size=(M_SAMPLE, D)).astype(np.float32)
+    return x, y, xq, x_add, y_add, x_sample
+
+
+def variant_launches() -> dict:
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
+
+    return dict(panel_strip_cuda.LAUNCHES_BY_VARIANT)
+
+
+def only_variant(launches: dict, kind: str, count: int, what: str) -> None:
+    """Fail unless ``count`` launches of instantiation ``kind`` and none of
+    any other."""
+    want = {k: (count if k == kind else 0) for k in launches}
+    if launches != want:
+        fail(f"{what}: panel-strip launches {launches}, expected {want}")
+
+
+def middle_panel_times(kernel, x_pad, n_live, noise, l_full, widths, precision, library_call,
+                       flops: float) -> dict:
+    """The middle panel: the kernel against its bound, its (chunked) plain
+    version and one torch call of the downdate alone (``library_call``:
+    ``(k_strip, l_tail, l_rows) -> fn``), in turns; and the downdates'
+    errors against float64."""
+    import torch
+
+    from friedrich_tpu_torch.ops.covariance import plain_train_covariance_block
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
+    from friedrich_tpu_torch.ops.panel_fused import downdate_operand
+
+    starts = np.cumsum((0,) + tuple(widths[:-1]))
+    p = len(widths) // 2
+    j0, block = int(starts[p]), widths[p]
+    rest = x_pad.shape[0] - j0
+    args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
+    k_strip = plain_train_covariance_block(kernel, x_pad[j0:], x_pad[j0:j0 + block], n_live, noise,
+                                           row0=j0, col0=j0)
+    l_tail, l_rows = l_full[j0:, :j0], l_full[j0:j0 + block, :j0]
+    op = (lambda t: downdate_operand(t, torch.float32, precision))
+    ref = chunked_product(l_tail, l_rows, torch.float64, operand=op)
+    fn, library_name = library_call(k_strip, l_tail, l_rows)
+    kernel_dd = k_strip.double() - panel_strip_cuda.panel_strip(*args, precision=precision).double()
+    accuracy = {"max_abs_downdate_f64": float(ref.abs().max()),
+                "kernel_downdate_err": float((kernel_dd - ref).abs().max()),
+                "library_downdate_err": float((k_strip.double() - fn().double() - ref).abs().max())}
+    del kernel_dd, ref
+    torch.cuda.empty_cache()
+    times = {"kernel": [], "library": []}
+    for _ in range(2):
+        times["kernel"].append(cuda_ms(lambda: panel_strip_cuda.panel_strip(*args, precision=precision),
+                                       reps=3))
+        times["library"].append(cuda_ms(fn, reps=3))
+    plain_ms = cuda_ms(lambda: plain_strip_chunked(*args, precision=precision), reps=1)
+    pitem = l_full.element_size()
+    bound, by = strip_bound_ms(rest, block, j0, x_pad.shape[1], 4, flops, prefix_itemsize=pitem)
+    del k_strip, l_tail, l_rows, fn
+    torch.cuda.empty_cache()
+    return {"shape": f"panel j0={j0} B={block} of capacity {x_pad.shape[0]}, rest {rest}, "
+                     f"prefix {l_full.dtype}, precision {precision}",
+            "ms": min(times["kernel"]), "kernel_runs_ms": times["kernel"], "plain_ms": plain_ms,
+            "library_ms": min(times["library"]), "library_runs_ms": times["library"],
+            "library_call": library_name, "bound_ms": bound, "bound_by": by,
+            "downdate_tflops": 2 * rest * block * j0 / min(times["kernel"]) / 1e9, **accuracy}
+
+
+def bf16_library_call(k_strip, l_tail, l_rows):
+    """torch's one call of the downdate on the bf16 operands: float32 out
+    where this torch has ``out_dtype``, else bf16 out."""
+    import torch
+
+    try:
+        torch.addmm(k_strip[:8], l_tail[:8], l_rows[:8].mT, alpha=-1, out_dtype=torch.float32)
+        return (lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1, out_dtype=torch.float32),
+                "torch.addmm(k_strip, L[j0:, :j0], L[j0:j0+B, :j0].T, alpha=-1, "
+                "out_dtype=torch.float32), bf16 operands")
+    except (TypeError, RuntimeError):
+        k16 = k_strip.to(torch.bfloat16)
+        return (lambda: torch.addmm(k16, l_tail, l_rows.mT, alpha=-1),
+                "torch.addmm on bf16 operands and a bf16 strip (this torch has no out_dtype)")
+
+
+def medium_library_call(k_strip, l_tail, l_rows):
+    """torch's one call of the downdate on the float32 operands under the
+    float32 matmul precision "medium" (the JAX package's "bf16" mode)."""
+    import torch
+
+    def fn():
+        torch.set_float32_matmul_precision("medium")
+        try:
+            return torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1)
+        finally:
+            torch.set_float32_matmul_precision("highest")
+
+    return fn, "torch.addmm(k_strip, L[j0:, :j0], L[j0:j0+B, :j0].T, alpha=-1) under 'medium'"
+
+
+def phase_bf16_storage(n: int) -> tuple[dict, tuple, dict]:
+    """8a: the builder's flow with bf16 factor storage at n = 150,000."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.ops.covariance import kernel_diag
+    from friedrich_tpu_torch.ops.partition import panel_widths
+
+    cap = n + K_ADD
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"== phase 8a: bf16 factor storage at n={n}, capacity {cap}, d=8, float32 compute "
+        f"(scripts/check80k.py's data and flow); a float32 factor {cap * cap * 4} B, two bf16 "
+        f"factors {2 * cap * cap * 2} B, card {card} B")
+    x, y, xq, x_add, y_add, x_sample = bf16_data(n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path; the kernels' launches are counted over this run only
+    reset_launches()
+    t_start = sync()
+    builder = (
+        ft.GaussianProcessBuilder(x, y, device="cuda")
+        .set_noise(BF16_NOISE).set_dtype("float32").set_backend("streamed").set_capacity(cap)
+        .set_factor_storage("bf16").set_fit_subsample(BF16_SUBFIT).set_fit_parameters(100, 0.05)
+        .fit_kernel().fit_prior()
+    )
+    gp = builder.train()
+    t0 = sync()
+    mean, var = gp.predict_in_batches(xq, M_QUERIES)
+    t_predict = sync() - t0
+    mean_train = np.asarray(gp.predict(x[:512]))
+    t0 = sync()
+    gp.add_samples(x_add, y_add)
+    t_add = sync() - t0
+    t0 = sync()
+    draw = gp.sample_at(torch.as_tensor(x_sample, device="cuda")).sample(
+        torch.Generator(device="cuda").manual_seed(0))
+    t_sample = sync() - t0
+    t_total = sync() - t_start
+    b1_launches, _, _ = read_launches()
+    launches = variant_launches()
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    state = gp.state
+    widths = panel_widths(cap, state.block)
+    if state.l.dtype != torch.bfloat16 or state.storage != "bf16":
+        fail(f"the model's factor is {state.l.dtype}, storage {state.storage!r}")
+    kdiag = kernel_diag(gp.kernel, torch.as_tensor(xq, device="cuda"))
+    corr = float(np.corrcoef(mean_train, y[:512])[0, 1])
+    ampl = float(gp.kernel.ampl)
+    f_q = np.sin(2.5 * xq[:, 0]) + 0.5 * np.cos(2.0 * xq[:, 1])
+    corr_truth = float(np.corrcoef(mean.cpu().numpy(), f_q)[0, 1])
+    t = builder.timings
+    steps = {
+        "heuristic_s": t["heuristic"], "subfit_s": t["subfit"], "subfit_iterations": t["subfit_iterations"],
+        "build_factor_s": t["build"], "predict_in_batches_s": t_predict, "add_samples_s": t_add,
+        "sample_at_s": t_sample, "total_s": t_total, "peak_bytes": peak, "peak_gib": peak / 2**30,
+        "factor_bytes": cap * cap * 2, "panels": len(widths), "panel_width": widths[0],
+        "panel_strip_launches": launches, "covariance_tile_launches": b1_launches,
+        "ls": float(gp.kernel.ls), "ampl": ampl, "noise": gp.noise,
+        "envelope_n_2^-15_ampl^2": n * 2.0**-15 * ampl * ampl, "noise^2": gp.noise**2,
+        "train_corr": corr, "var_min": float(var.min()), "var_max": float(var.max()),
+        "rmse_vs_truth": float(np.sqrt(np.mean((mean.cpu().numpy() - f_q) ** 2))),
+        "query_mean_truth_corr": corr_truth,
+        "lml": gp.log_marginal_likelihood(),
+    }
+    log(json.dumps({"bf16_storage_steps": steps}))
+    # the build and the append's rebuild, each one launch a panel, bf16 only
+    only_variant(launches, "bf16", 2 * len(widths), "phase 8a")
+    if b1_launches <= 0:
+        fail("phase 8a never launched the covariance kernel")
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+            and bool(torch.isfinite(draw).all())):
+        fail("phase 8a: non-finite predictions or draws")
+    if not (float(var.min()) >= -1e-4 and bool((var <= kdiag + 1e-4).all())):
+        fail(f"phase 8a: variances outside [-1e-4, k(x, x)]: [{float(var.min())}, {float(var.max())}]")
+    # a calibrated model cannot reach a training-point correlation near
+    # check80k's 0.82 here: corr(f, y) = std f / std y = 0.79 / 2.15 = 0.37
+    # (PERF.md §6); check80k.py's own gate is 0.1, and the model must
+    # have learned f itself
+    if not (corr > 0.1 and corr_truth > 0.5):
+        fail(f"phase 8a: training-point mean/target correlation {corr} (limit 0.1), query "
+             f"mean/noise-free truth correlation {corr_truth} (limit 0.5)")
+    if gp.num_samples != cap:
+        fail(f"phase 8a: add_samples left {gp.num_samples} samples, expected {cap}")
+    fitted = (gp.prior, gp.kernel, gp.noise)
+    kernel, noise, n_live, x_pad, l_full = state.kernel, state.noise, state.n, state.x, state.l
+    del gp, state, mean, var, draw, builder
+    torch.cuda.empty_cache()
+    max_err = check_panels(kernel, x_pad, n_live, noise, l_full, widths, f"bf16 factor, capacity {cap}")
+    row = middle_panel_times(kernel, x_pad, n_live, noise, l_full, widths, None, bf16_library_call,
+                             BF16_FLOPS)
+    row["max_abs_err"] = max_err
+    log(json.dumps({"panel_strip_bf16_middle_panel": row}))
+    del l_full
+    torch.cuda.empty_cache()
+    return {
+        "name": "panel_strip_bf16", "route": "cuda",
+        "source": "friedrich_tpu_torch/csrc/panel_strip_bf16.cu",
+        "replaces": "friedrich_tpu/ops/pallas/panel_fused.py:102",
+        "launches": launches["bf16"], "max_abs_err": max_err, "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "library_call": row["library_call"],
+        "bound": "tensor cores: one bf16 product at 989 TFLOP/s", "shape": row["shape"],
+    }, fitted, steps
+
+
+def phase_bf16_vs_f32(fitted, n: int) -> dict:
+    """8b: float32 storage, bf16 storage and float32 with precision "bf16"
+    at capacity n + 512, one after another, with 8a's hyperparameters."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.ops.partition import panel_widths
+
+    cap = n + K_ADD
+    log(f"== phase 8b: float32 against bf16 storage and precision 'bf16' at capacity {cap} "
+        f"(8a's data and hyperparameters)")
+    prior, kernel, noise = fitted
+    x, y, xq, *_ = bf16_data(BF16_N)
+    x, y = x[:n], y[:n]
+    widths = panel_widths(cap)
+    out, preds = {}, {}
+    entry = None
+    for name, kw, kind in (("f32", {}, "tf32x3"), ("bf16_storage", {"storage": "bf16"}, "bf16"),
+                           ("f32_precision_bf16", {"precision": "bf16"}, "one_pass")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = sync()
+        gp = ft.GaussianProcess.new(prior, kernel, noise, None, x, y, dtype="float32", capacity=cap,
+                                    backend="streamed", device="cuda", **kw)
+        build_s = sync() - t0
+        launches = variant_launches()
+        only_variant(launches, kind, len(widths), f"phase 8b, {name}")
+        mean, var = gp.predict_in_batches(xq, M_QUERIES)
+        preds[name] = (mean.cpu(), var.cpu())
+        out[name] = {"build_factor_s": build_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "lml": gp.log_marginal_likelihood(), "launches": launches[kind]}
+        if kind == "one_pass":
+            st = gp.state
+            err = check_panels(st.kernel, st.x, st.n, st.noise, st.l, widths,
+                               f"precision 'bf16' factor, capacity {cap}", precision="bf16")
+            row = middle_panel_times(st.kernel, st.x, st.n, st.noise, st.l, widths, "bf16",
+                                     medium_library_call, TF32_FLOPS)
+            row["max_abs_err"] = err
+            log(json.dumps({"panel_strip_1pass_middle_panel": row}))
+            entry = {
+                "name": "panel_strip_1pass", "route": "cuda",
+                "source": "friedrich_tpu_torch/csrc/panel_strip_1pass.cu",
+                "replaces": "friedrich_tpu/ops/pallas/panel_fused.py:102",
+                "launches": launches[kind], "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "library_call": row["library_call"],
+                "bound": "tensor cores: one TF32 product at 495 TFLOP/s", "shape": row["shape"],
+            }
+            del st
+        del gp, mean, var
+        torch.cuda.empty_cache()
+    m32, v32 = preds["f32"]
+    for name in ("bf16_storage", "f32_precision_bf16"):
+        m, v = preds[name]
+        out[name]["mean_max_abs_diff_vs_f32"] = float((m - m32).abs().max())
+        out[name]["var_max_abs_diff_vs_f32"] = float((v - v32).abs().max())
+    out["tolerance"] = BF16_PREDICT_ATOL
+    log(json.dumps({"bf16_vs_f32": out}))
+    for name in ("bf16_storage", "f32_precision_bf16"):
+        worst = max(out[name]["mean_max_abs_diff_vs_f32"], out[name]["var_max_abs_diff_vs_f32"])
+        if not worst <= BF16_PREDICT_ATOL:
+            fail(f"phase 8b: {name} predictions differ from float32 storage by {worst} "
+                 f"(limit {BF16_PREDICT_ATOL})")
+    return {"entry": entry, "launches_bf16": out["bf16_storage"]["launches"],
+            "launches_tf32x3": out["f32"]["launches"]}
+
+
+def rss_bytes() -> int:
+    """This process's resident host memory (page-locked buffers included)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def link_rates() -> dict:
+    """Host-to-card copy rates of 1 GiB from pageable and from page-locked
+    host memory, and the time of page-locking 1 GiB in place
+    (``ops/outofcore.host_factor``) beside torch's own ``pin_memory``."""
+    import torch
+
+    from friedrich_tpu_torch.ops import outofcore
+
+    nbytes = 1 << 30
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    pageable = torch.ones(nbytes, dtype=torch.uint8)
+    t0 = time.perf_counter()
+    pinned = outofcore.host_factor(1 << 15, torch.uint8, pinned=True)  # 1 GiB
+    pin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch_pinned = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=True)
+    torch_pin_s = time.perf_counter() - t0
+    del torch_pinned
+    out = {"register_1GiB_s": pin_s, "torch_pin_memory_1GiB_s": torch_pin_s}
+    for name, src in (("pageable", pageable), ("pinned", pinned.view(-1))):
+        dev.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dev.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        out[f"h2d_{name}_GBps"] = 3 * nbytes / (time.perf_counter() - t0) / 1e9
+    del dev, pageable, pinned
+    return out
+
+
+def ooc_profile(fn) -> dict:
+    """Device activity during ``fn()`` (``torch.profiler``): the busy time
+    of the copies and of the kernels, how much of the two overlapped, and
+    the device's idle share of the wall-clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def union(iv):
+        total, end = 0.0, -1.0
+        for a, b in sorted(iv):
+            if b <= end:
+                continue
+            total += b - max(a, end)
+            end = b
+        return total
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
+            iv = (e.time_range.start / 1e6, e.time_range.end / 1e6)
+            (copies if "memcpy" in e.name.lower() else kernels).append(iv)
+    if not copies and not kernels:
+        return {"wall_s": wall, "device_time": "not measured (the profiler recorded no device time)"}
+    c, k, both = union(copies), union(kernels), union(copies + kernels)
+    return {"wall_s": wall, "copy_busy_s": c, "kernel_busy_s": k, "overlap_s": c + k - both,
+            "overlap_share_of_copies": (c + k - both) / c if c else None,
+            "idle_share": 1.0 - both / wall, "copies": len(copies), "kernels": len(kernels)}
+
+
+def check_prefix_panels(kernel, x_pad, n_live: int, noise, l_host, block: int, where: str) -> float:
+    """B2's explicit-prefix entry, the out-of-core strip, against its plain
+    version on the first, middle and last panels of the host factor
+    ``l_host`` (panels of ``block``): the prefix is the panel's first chunk
+    as the out-of-core loop uploads it, rows j0: of ``L[:, :block]`` (no
+    columns for the first panel), each strip within :func:`strip_excess`'s
+    tolerance; returns the largest error."""
+    import torch
+
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
+    from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
+
+    panels = x_pad.shape[0] // block
+    kind = panel_strip_cuda.variant(x_pad.dtype, l_host.dtype)
+    split = panel_strip_cuda.SPLIT_ERROR if kind == "tf32x3" else 0.0
+    max_err = 0.0
+    for p in (0, panels // 2, panels - 1):
+        j0 = p * block
+        prefix = l_host[j0:, :block if p else 0].contiguous().to("cuda")
+        args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], None, n_live, noise, j0, block)
+        got = panel_strip_cuda.panel_strip(*args, prefix=prefix)
+        want = plain_panel_strip(*args, prefix=prefix)
+        err = float((got - want).abs().max())
+        over = strip_excess(got, want, prefix, block, ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"], split)
+        log(f"{where}, panel {p} [{j0}, {j0 + block}), prefix {tuple(prefix.shape)}: max error {err}, "
+            f"excess over its tolerance {over}")
+        max_err = max(max_err, err)
+        if not over <= 0:
+            fail(f"explicit-prefix panel strip differs from the plain version on panel {p} at {where}: "
+                 f"max error {err}")
+        del got, want, prefix
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def phase_outofcore() -> dict:
+    """8c: OutOfCoreGP at n = 100,000 with a bf16 host factor, against an
+    on-card bf16 model; then a float32 host factor at n = 50,000 against
+    the on-card streamed factor, and one fit_generic iteration."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.ops import outofcore
+    from friedrich_tpu_torch.ops.partition import pick_block
+    from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
+
+    log("== phase 8c: OutOfCoreGP (host factor) at n=100,000, bf16, and n=50,000, float32 "
+        "(scripts/check100k_outofcore.py's configuration)")
+    free = subprocess.run(["free", "-b"], capture_output=True, text=True, timeout=60).stdout
+    log("free -b:\n" + free.strip())
+    rates = link_rates()
+    log(json.dumps({"host_link": rates}))
+    n, block = OOC_N, OOC_BLOCK
+    cap = -(-n // block) * block
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, D)).astype(np.float32)
+    y = (np.sin(x[:, 0]) + OOC_NOISE * rng.normal(size=n)).astype(np.float32)
+    xq = rng.normal(size=(OOC_QUERIES, D)).astype(np.float32)
+    kern = ft.kernels.SquaredExp(ls=0.5, ampl=1.0)
+    prior = ft.priors.ZeroPrior()
+    out = {}
+    # ---- the main path: the model, its factor and its predictions
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    up0, down0, rss0 = outofcore.TRAFFIC["up"], outofcore.TRAFFIC["down"], rss_bytes()
+    t0 = sync()
+    gp = ft.OutOfCoreGP(kern, prior, OOC_NOISE, x, y, block=block, capacity=cap, storage="bf16",
+                        device="cuda")
+    factor_s = sync() - t0
+    up, down = outofcore.TRAFFIC["up"] - up0, outofcore.TRAFFIC["down"] - down0
+    rss1 = rss_bytes()
+    up_predict = outofcore.TRAFFIC["up"]
+    t0 = sync()
+    mean, var = gp.predict_mean_variance(xq)
+    predict_s = sync() - t0
+    up_predict = outofcore.TRAFFIC["up"] - up_predict
+    launches = variant_launches()
+    # ---- end of the main path
+    only_variant(launches, "bf16", cap // block, "phase 8c, bf16 host factor")
+    # the factor alone: a refactor into the page-locked buffer the model holds
+    up1 = outofcore.TRAFFIC["up"]
+    t0 = sync()
+    gp.set_hyperparameters(noise=OOC_NOISE)
+    refactor_s = sync() - t0
+    refactor_up = outofcore.TRAFFIC["up"] - up1
+    out["bf16_n100k"] = {
+        "capacity": cap, "host_factor_bytes": cap * cap * 2, "construct_s": factor_s,
+        "refactor_s": refactor_s, "bytes_up": up, "bytes_down": down,
+        "link_GBps_refactor": (refactor_up + down) / refactor_s / 1e9,
+        "host_alloc_and_pin_s_estimate": factor_s - refactor_s,
+        "host_rss_before": rss0, "host_rss_after": rss1, "device_peak_bytes": torch.cuda.max_memory_allocated(),
+        "predict_256_s": predict_s, "bytes_up_predict": up_predict,
+        "var_min": float(var.min()), "var_max": float(var.max()),
+        "lml": gp.log_marginal_likelihood(), "panel_strip_launches": launches["bf16"],
+    }
+    log(json.dumps({"outofcore_bf16": out["bf16_n100k"]}))
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())):
+        fail("phase 8c: non-finite out-of-core predictions")
+    if not (float(var.min()) >= -1e-2 and float(var.max()) <= 1.0 + 1e-2):
+        fail(f"phase 8c: variances outside [-1e-2, 1.01]: [{float(var.min())}, {float(var.max())}]")
+    ooc_lml = out["bf16_n100k"]["lml"]
+    out["bf16_n100k"]["prefix_max_abs_err"] = check_prefix_panels(
+        gp.kernel, gp.x, gp.n, gp.noise, gp.l_host, pick_block(cap, block),
+        f"explicit bf16 prefix, out-of-core capacity {cap}")
+    del gp
+    # the same model on the card (bf16 storage, the streamed backend)
+    t0 = sync()
+    ref = ft.GaussianProcess.new(prior, kern, OOC_NOISE, None, x, y, dtype="float32", capacity=cap,
+                                 backend="streamed", storage="bf16", device="cuda")
+    ref_s = sync() - t0
+    rmean, rvar = ref.predict_mean_variance(torch.as_tensor(xq, device="cuda"))
+    cmp = {"on_card_build_s": ref_s, "mean_max_abs_diff": float((mean - rmean).abs().max()),
+           "var_max_abs_diff": float((var - rvar).abs().max()), "tolerance": OOC_BF16_ATOL,
+           "lml_on_card": ref.log_marginal_likelihood(), "lml_out_of_core": ooc_lml}
+    log(json.dumps({"outofcore_vs_on_card_bf16": cmp}))
+    del ref, rmean, rvar, mean, var
+    torch.cuda.empty_cache()
+    if not max(cmp["mean_max_abs_diff"], cmp["var_max_abs_diff"]) <= OOC_BF16_ATOL:
+        fail(f"phase 8c: out-of-core predictions differ from the on-card model's: {cmp}")
+    # ---- float32 host factor at n = 50,000
+    n2 = OOC_F32_N
+    cap2 = n2 + K_ADD
+    reset_launches()
+    t0 = sync()
+    gp2 = ft.OutOfCoreGP(kern, prior, OOC_NOISE, x[:n2], y[:n2], block=block, capacity=cap2,
+                         device="cuda")
+    factor2_s = sync() - t0
+    f32_launches = variant_launches()
+    prefix_err = check_prefix_panels(gp2.kernel, gp2.x, gp2.n, gp2.noise, gp2.l_host,
+                                     pick_block(cap2, block),
+                                     f"explicit float32 prefix, out-of-core capacity {cap2}")
+    kern_dev = kern.to(torch.float32, "cuda")
+    noise_dev = torch.tensor(OOC_NOISE, device="cuda")
+    l_dev, ok = streamed_cholesky_factor(kern_dev, gp2.x, n2, noise_dev)
+    if not bool(ok):
+        fail("phase 8c: the on-card streamed factor at 50,512 failed")
+    worst = 0.0
+    for r0 in range(0, cap2, 4096):
+        worst = max(worst, float((gp2.l_host[r0:r0 + 4096].to("cuda") - l_dev[r0:r0 + 4096]).abs().max()))
+    del l_dev
+    torch.cuda.empty_cache()
+    profile = ooc_profile(lambda: gp2.set_hyperparameters(noise=OOC_NOISE))
+    t0 = sync()
+    gp2.fit_generic(max_iter=1, num_probes=8)
+    fit_s = sync() - t0
+    out["f32_n50k"] = {"capacity": cap2, "factor_s": factor2_s, "max_abs_diff_vs_on_card": worst,
+                       "prefix_max_abs_err": prefix_err,
+                       "tolerance": OOC_F32_ATOL, "launches": f32_launches, "refactor_profile": profile,
+                       "fit_generic_1_iteration_s": fit_s, "noise_after": float(gp2.noise)}
+    log(json.dumps({"outofcore_f32": out["f32_n50k"]}))
+    del gp2
+    if not worst <= OOC_F32_ATOL:
+        fail(f"phase 8c: the float32 host factor differs from the on-card one by {worst} "
+             f"(limit {OOC_F32_ATOL})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--n", type=int, default=50_000,
                         help="training points of the dense full-width phase (default 50,000)")
     parser.add_argument("--streamed-n", type=int, default=100_000,
-                        help="training points of the streamed full-width phase (default 100,000)")
+                        help="training points of the streamed full-width phase and of 8b (default 100,000)")
     args = parser.parse_args()
 
     import torch
@@ -1968,8 +2590,22 @@ def main() -> int:
     del gp_7a, gp_7b, res_7a
     phase_sampler_sanity()
     log(f"phase 7 took {time.perf_counter() - t7} s")
+    t8 = time.perf_counter()
+    bf16_entry, fitted_bf16, _ = phase_bf16_storage(BF16_N)
+    torch.cuda.empty_cache()
+    compared = phase_bf16_vs_f32(fitted_bf16, args.streamed_n)
+    one_pass_entry = compared["entry"]
+    bf16_entry["launches_8b"] = compared["launches_bf16"]
+    streamed_entry["launches_8b"] = compared["launches_tf32x3"]
+    torch.cuda.empty_cache()
+    ooc = phase_outofcore()
+    bf16_entry["launches_8c_outofcore"] = ooc["bf16_n100k"]["panel_strip_launches"]
+    streamed_entry["launches_8c_outofcore"] = ooc["f32_n50k"]["launches"]["tf32x3"]
+    bf16_entry["max_abs_err"] = max(bf16_entry["max_abs_err"], ooc["bf16_n100k"]["prefix_max_abs_err"])
+    streamed_entry["max_abs_err"] = max(streamed_entry["max_abs_err"], ooc["f32_n50k"]["prefix_max_abs_err"])
+    log(f"phase 8 took {time.perf_counter() - t8} s")
     log(smi_line())
-    log(json.dumps({"kernels": [entry, streamed_entry]}))
+    log(json.dumps({"kernels": [entry, streamed_entry, bf16_entry, one_pass_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

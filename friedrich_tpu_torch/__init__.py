@@ -15,6 +15,7 @@ from .models import (
     GaussianProcessBuilder,
     GPState,
     MultivariateNormal,
+    OutOfCoreGP,
 )
 from .utils.errors import CholeskyError, ConfigError, FriedrichError, ShapeError
 
@@ -28,6 +29,7 @@ __all__ = [
     "GaussianProcessBuilder",
     "GPState",
     "MultivariateNormal",
+    "OutOfCoreGP",
     "CholeskyError",
     "ConfigError",
     "FriedrichError",

@@ -140,13 +140,14 @@ class _StreamedLogprob(torch.autograd.Function):
 class _StreamedDensity:
     """What the streamed density reads of the state — never the factor."""
 
-    def __init__(self, state: GPState, prior_mu, prior_sigma, signs, probes, scope):
+    def __init__(self, state: GPState, prior_mu, prior_sigma, signs, probes, precision):
         self.x_pad, self.resid, self.n, self.cap = state.x, state.resid, state.n, state.capacity
         self.method, self.eps, self.kernel = state.method, state.eps, state.kernel
         self.nb = state.kernel.nb_params
         self.sign_vec = _sign_vector(state, signs)
         self.prior_mu, self.prior_sigma = prior_mu, prior_sigma
-        self.probes, self.scope = probes, scope
+        self.probes, self.precision = probes, precision
+        self.scope = _precision_scope(precision)
         self.live = torch.arange(self.cap, device=self.x_pad.device) < self.n
 
     def _raw(self, theta):
@@ -159,8 +160,10 @@ class _StreamedDensity:
     def forward_parts(self, theta):
         with self.scope():
             _, kernel, noise = self._raw(theta)
+            # the factor precision picks the panel strip's arithmetic, as in
+            # every other factorization of the model
             l_pad, ok = streamed_cholesky_factor(kernel, self.x_pad, self.n, noise, eps=self.eps,
-                                                 method=self.method)
+                                                 method=self.method, precision=self.precision)
             # the residuals and the probes in one pair of triangular solves
             half = solve_lower(l_pad, torch.cat([self.resid[:, None], self.probes], dim=1))
             sol = solve_lower_t(l_pad, half)
@@ -218,8 +221,7 @@ def make_streamed_hyperparam_logprob(
         probes = rademacher_probes(state.capacity, state.n, num_probes, probe_seed,
                                    state.x.dtype, state.x.device)
     probes = torch.as_tensor(probes, dtype=state.x.dtype, device=state.x.device)
-    density = _StreamedDensity(state, prior_mu, prior_sigma, signs, probes,
-                               _precision_scope(precision))
+    density = _StreamedDensity(state, prior_mu, prior_sigma, signs, probes, precision)
 
     def logp(theta: torch.Tensor) -> torch.Tensor:
         return _StreamedLogprob.apply(theta, density)

@@ -6,6 +6,7 @@ from .gp import (
     GPState,
     PredictWeights,
     add_samples_padded,
+    add_samples_rebuild,
     derive_weights,
     likelihood,
     log_marginal_likelihood,
@@ -19,6 +20,7 @@ from .gp import (
 )
 from .multivariate_normal import MultivariateNormal
 from .optimizer import fit_kernel_noise, fit_parameters
+from .outofcore_gp import OutOfCoreGP
 
 __all__ = [
     "GaussianProcess",
@@ -27,7 +29,9 @@ __all__ = [
     "PredictWeights",
     "derive_weights",
     "MultivariateNormal",
+    "OutOfCoreGP",
     "add_samples_padded",
+    "add_samples_rebuild",
     "likelihood",
     "log_marginal_likelihood",
     "make_state",

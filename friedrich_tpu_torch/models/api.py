@@ -110,13 +110,17 @@ class GaussianProcess:
         dtype=None,
         device=None,
         panel_block=None,
+        precision: Optional[str] = None,
     ) -> "GaussianProcess":
         """Raw constructor (``mod.rs:142-167``). ``dtype`` overrides the
         default compute dtype; ``device`` the default device (CUDA unless
         ``config.set_device`` says otherwise). ``backend``: ``"dense"``,
         ``"streamed"`` or ``"auto"`` (``models/gp.resolve_backend``);
         ``panel_block``: the streamed backend's panel width or width
-        schedule (default ``ops/partition.panel_widths``)."""
+        schedule (default ``ops/partition.panel_widths``); ``storage``
+        (None or ``"bf16"``) and ``precision``: the factor storage dtype and
+        the matmul precision of every factorization of the model (streamed
+        backend; builder ``set_factor_storage``, ``set_factor_precision``)."""
         if noise < 0:
             raise ConfigError(
                 f"The noise parameter should be non-negative but we tried to "
@@ -135,6 +139,7 @@ class GaussianProcess:
         state, ok = core.make_state(
             kernel, prior, noise, x, y, eps=cholesky_epsilon, method=method,
             cap=capacity, backend=backend, storage=storage, block=panel_block,
+            precision=precision,
         )
         if not bool(ok):
             raise CholeskyError()
@@ -244,7 +249,14 @@ class GaussianProcess:
         (``config.two_matrices_fit``), the append writes the new rows into
         the factor in place, and a failed one puts them back to the
         identity padding (``models/gp.repair_failed_append``), as the JAX
-        package's donated append does."""
+        package's donated append does.
+
+        A bf16-stored model appends by a whole refactorization
+        (``models/gp.add_samples_rebuild``): into a new factor where two
+        bf16 factors fit the card, and the model is unchanged on failure;
+        into the factor's own buffer where they do not, and a failure
+        refactors the model at the old n (the JAX package's recovery of a
+        grown buffer). A grown model rebuilds into its fresh buffer."""
         state = self._state
         x_new, _ = as_input_matrix(inputs, dtype=state.x.dtype, device=state.x.device)
         y_new = as_output_vector(outputs, dtype=state.resid.dtype, device=state.x.device)
@@ -256,9 +268,15 @@ class GaussianProcess:
                 f"{state.input_dim}"
             )
         n, k, cap = state.n, x_new.shape[0], state.capacity
-        if n + k > cap:
-            # amortized growth, extendable_matrix.rs:38 (x1.5 policy)
-            state = core.grow_capacity(state, max(n + k, math.ceil(cap * GROWTH_FACTOR)))
+        grew = n + k > cap
+        if grew:
+            # amortized growth, extendable_matrix.rs:38 (x1.5 policy); a
+            # bf16-storage append rebuilds, so the old factor is not copied
+            state = core.grow_capacity(state, max(n + k, math.ceil(cap * GROWTH_FACTOR)),
+                                       copy_factor=state.storage != "bf16")
+        if state.storage == "bf16":
+            self._append_rebuild(state, x_new, y_new, grew)
+            return
         in_place = not config.two_matrices_fit(state.capacity, state.l.element_size(),
                                                state.l.device)
         new_state = core.add_samples_padded(state, x_new, y_new, in_place=in_place)
@@ -272,6 +290,26 @@ class GaussianProcess:
                 "(new points make the covariance non-PSD); consider setting "
                 "`cholesky_epsilon` or increasing the noise. The model was "
                 "left unchanged."
+            )
+        self._state = new_state
+
+    def _append_rebuild(self, state: core.GPState, x_new, y_new, grew: bool) -> None:
+        """The bf16-storage append (``friedrich_tpu/models/api.py:315-349``)
+        under the port's two-matrix memory rule."""
+        own = grew or not config.two_matrices_fit(state.capacity, state.l.element_size(),
+                                                  state.l.device)
+        new_state, ok = core.add_samples_rebuild(state, x_new, y_new, reuse_buffer=own)
+        if not bool(ok):
+            if own and not grew:
+                # the failed factor is in the model's buffer: refactor at the
+                # old n (its data are unchanged), as the JAX package restores
+                # a grown buffer
+                restored, ok_old = core.rebuild_cholesky(state, reuse_buffer=True)
+                if bool(ok_old):
+                    self._state = restored
+            raise CholeskyError(
+                "add_samples: refactorization with the new points failed; consider setting "
+                "`cholesky_epsilon` or increasing the noise. The model was left unchanged."
             )
         self._state = new_state
 

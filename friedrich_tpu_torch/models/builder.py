@@ -34,9 +34,9 @@ from ..config import (
 from ..conversion import as_input_matrix, as_output_vector
 from ..kernels import Gaussian
 from ..priors import ConstantPrior
-from ..utils.errors import ConfigError, not_ported
+from ..utils.errors import ConfigError
 from .api import GaussianProcess, check_dtype
-from .gp import check_backend
+from .gp import check_backend, resolve_backend
 from .optimizer import auto_subsample, subset_indices
 
 
@@ -65,6 +65,8 @@ class GaussianProcessBuilder:
         self._capacity: Optional[int] = None
         self._backend = "dense"
         self._panel_block = None
+        self._storage: Optional[str] = None
+        self._precision: Optional[str] = None
         self._dtype: Optional[torch.dtype] = None
         # "auto": the reference's full fit below n=24,576; above it, fit the
         # hyperparameters on a max(8192, n // 5) subset, then build the
@@ -154,24 +156,26 @@ class GaussianProcessBuilder:
         return self
 
     def set_factor_storage(self, storage: Optional[str]) -> "GaussianProcessBuilder":
-        """Factor storage dtype: only None (the input dtype) is ported;
-        'bf16' raises."""
+        """Factor storage dtype: None (the input dtype, default) or 'bf16'
+        (a bfloat16 factor, float32 compute: half the factor's memory;
+        needs the 'streamed' backend and float32 inputs). See
+        ``ops/streamed.streamed_cholesky_factor``."""
         if storage not in (None, "bf16"):
             raise ConfigError(f"unknown factor storage {storage!r}")
-        if storage is not None:
-            raise not_ported(f"factor storage {storage!r}")
+        self._storage = storage
         return self
 
     def set_factor_precision(self, precision: Optional[str]) -> "GaussianProcessBuilder":
-        """Matmul precision of the streamed backend's factorizations: only
-        None is ported; 'bf16', 'f32x3' and 'f32' raise."""
+        """Matmul precision of every factorization of the model (build and
+        fit rebuilds; streamed backend): None (default), 'bf16' (one pass of
+        bfloat16-rounded operands), 'f32x3' or 'f32' (both near float32:
+        the 3xTF32 product on the card, as None)."""
         if precision is not None and precision not in MATMUL_PRECISION_MODES:
             raise ConfigError(
                 f"unknown factor precision {precision!r}; pick one of "
                 f"{sorted(MATMUL_PRECISION_MODES)}"
             )
-        if precision is not None:
-            raise not_ported(f"factor precision {precision!r}")
+        self._precision = precision
         return self
 
     def set_panel_block(self, block) -> "GaussianProcessBuilder":
@@ -226,11 +230,27 @@ class GaussianProcessBuilder:
             method=self._method, dtype=self._dtype, device=x.device, **kw,
         )
 
+    def _new_full(self, prior, kernel, noise, x, y) -> GaussianProcess:
+        """The full-n model with every backend and factor knob of the
+        builder."""
+        return self._new(
+            prior, kernel, noise, x, y, capacity=self._capacity, backend=self._backend,
+            panel_block=self._panel_block, storage=self._storage, precision=self._precision,
+        )
+
     def train(self) -> GaussianProcess:
         x, y = self._x, self._y
         if self._dtype is not None:
             x = x.to(self._dtype)
             y = y.to(self._dtype)
+        if self._storage == "bf16":
+            if self._backend != "streamed":
+                raise ConfigError("set_factor_storage('bf16') requires set_backend('streamed')")
+            if x.dtype != torch.float32:
+                raise ConfigError(
+                    f"set_factor_storage('bf16') requires float32 inputs (got {x.dtype}; call "
+                    f"set_dtype('float32') — parity mode defaults to float64 under enable_x64)"
+                )
         self.timings = {}
         kernel = self._kernel
         if self._should_fit_kernel:
@@ -241,10 +261,7 @@ class GaussianProcessBuilder:
             if sub is not None:
                 return self._train_subfit_first(x, y, kernel, sub)
         t0 = _clock(x.device)
-        gp = self._new(
-            self._prior, kernel, self._noise, x, y, capacity=self._capacity,
-            backend=self._backend, panel_block=self._panel_block,
-        )
+        gp = self._new_full(self._prior, kernel, self._noise, x, y)
         self.timings["build"] = _clock(x.device) - t0
         if self._should_fit_prior or self._should_fit_kernel:
             t0 = _clock(x.device)
@@ -281,15 +298,23 @@ class GaussianProcessBuilder:
            (``mod.rs:414-421``);
         2. kernel + noise fitted on a fixed-seed random subset (and
            polished, with ``set_fit_polish(True)``);
-        3. ONE full-n build at the fitted hyperparameters.
+        3. ONE full-n build at the fitted hyperparameters, with every
+           storage, precision and backend knob of the builder.
+
+        The sub-model stores its factor in the input dtype. It takes the
+        builder's factor precision where ``"auto"`` streams it; with bf16
+        storage and no precision the JAX package gives it "f32", which on
+        the card is the same arithmetic as None.
         """
         t0 = _clock(x.device)
         prior = self._prior
         if self._should_fit_prior:
             prior = prior.fit(x, y)
         idx = subset_indices(x.shape[0], sub, 0, x.device)
+        streamed = resolve_backend("auto", sub, x.dtype, x.device) == "streamed"
         sub_gp = self._new(
             prior, kernel, self._noise, x[idx], y[idx], backend="auto",
+            precision=self._precision if streamed else None,
         )
         sub_gp.fit_parameters(
             fit_prior=False,
@@ -307,12 +332,10 @@ class GaussianProcessBuilder:
             # short exact-LML corrective pass from the ADAM endpoint, at the
             # sub-model's size
             t0 = _clock(x.device)
-            sub_gp = GaussianProcess(polish_map(sub_gp.state, max_time=self._max_time))
+            sub_gp = GaussianProcess(polish_map(sub_gp.state, precision=sub_gp.state.precision,
+                                                max_time=self._max_time))
             self.timings["polish"] = _clock(x.device) - t0
         t0 = _clock(x.device)
-        gp = self._new(
-            prior, sub_gp.kernel, sub_gp.noise, x, y, capacity=self._capacity,
-            backend=self._backend, panel_block=self._panel_block,
-        )
+        gp = self._new_full(prior, sub_gp.kernel, sub_gp.noise, x, y)
         self.timings["build"] = _clock(x.device) - t0
         return gp

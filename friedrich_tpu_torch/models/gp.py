@@ -26,6 +26,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from .. import config
+from ..ops.blocked_solve import blocked_cho_solve, blocked_solve_lower, blocked_solve_lower_t
 from ..ops.cholesky import cho_solve, cholesky_append_padded, factor, solve_lower, solve_lower_t
 from ..ops.covariance import (
     cross_covariance,
@@ -33,7 +34,7 @@ from ..ops.covariance import (
     kernel_diag,
     train_covariance_padded,
 )
-from ..ops.streamed import streamed_cholesky_factor
+from ..ops.streamed import STORAGE_DTYPES, streamed_cholesky_factor
 from ..utils.errors import ConfigError, not_ported
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -65,6 +66,12 @@ class GPState:
     # streamed-backend panel width or width schedule; None = the default
     # (ops/partition.panel_widths)
     block: Any = None
+    # factor storage dtype: None (the input dtype) or "bf16" (a bfloat16
+    # factor, float32 compute; streamed backend only)
+    storage: Optional[str] = None
+    # matmul precision mode of the factorizations (streamed backend): None,
+    # "bf16", "f32x3" or "f32" (ops/streamed.streamed_cholesky_factor)
+    precision: Optional[str] = None
 
     @property
     def capacity(self) -> int:
@@ -94,13 +101,18 @@ def pad_capacity(x: torch.Tensor, y_resid: torch.Tensor, cap: int) -> tuple[torc
 
 
 def check_backend(backend: str, storage: Optional[str] = None) -> None:
-    """Raise for a backend or factor storage this port cannot run."""
+    """Raise for a backend this port cannot run, an unknown factor storage,
+    or bf16 storage asked of a backend that is never streamed."""
     if backend in _NOT_PORTED_BACKENDS:
         raise not_ported(f"backend={backend!r}")
     if backend not in ("dense", "streamed", "auto"):
         raise ConfigError(f"unknown backend {backend!r}")
-    if storage is not None:
-        raise not_ported(f"factor storage {storage!r}")
+    if storage not in STORAGE_DTYPES:
+        raise ConfigError(f"unknown factor storage {storage!r}")
+    if storage is not None and backend == "dense":
+        raise ConfigError(
+            f"factor storage {storage!r} requires the 'streamed' backend (got {backend!r})"
+        )
 
 
 def resolve_backend(backend: str, cap: int, dtype: torch.dtype, device) -> str:
@@ -118,10 +130,22 @@ def resolve_backend(backend: str, cap: int, dtype: torch.dtype, device) -> str:
     return "dense"
 
 
-def _build_factor(kernel, x_pad, n, noise, eps, method, backend="dense", block=None, l0=None):
-    if resolve_backend(backend, x_pad.shape[0], x_pad.dtype, x_pad.device) == "streamed":
+def _build_factor(kernel, x_pad, n, noise, eps, method, backend="dense", block=None, l0=None,
+                  storage=None, precision=None):
+    resolved = resolve_backend(backend, x_pad.shape[0], x_pad.dtype, x_pad.device)
+    if storage is not None and resolved != "streamed":
+        raise ConfigError(
+            f"factor storage {storage!r} requires the 'streamed' backend (got {resolved!r})"
+        )
+    if resolved == "streamed":
         return streamed_cholesky_factor(kernel, x_pad, n, noise, eps=eps, block=block,
-                                        method=method, l0=l0)
+                                        method=method, storage=storage, precision=precision,
+                                        l0=l0)
+    if precision is not None and backend != "auto":
+        raise ConfigError(
+            f"factor precision {precision!r} requires the 'streamed' backend (got {backend!r}); "
+            f"other backends run float32 matmuls at full precision"
+        )
     k_pad = train_covariance_padded(kernel, x_pad, n, noise, method=method)
     return factor(k_pad, eps)
 
@@ -138,6 +162,7 @@ def make_state(
     backend: str = "dense",
     storage: Optional[str] = None,
     block=None,
+    precision: Optional[str] = None,
 ) -> tuple[GPState, torch.Tensor]:
     """Build a trained state from live data (``GaussianProcess::new``,
     ``mod.rs:142-167``): residualize against the prior, build the padded
@@ -145,8 +170,11 @@ def make_state(
 
     Returns ``(state, ok)``; ``ok`` is False if the factorization produced
     non-finite values (caller raises ``CholeskyError``). ``block`` is the
-    streamed backend's panel width or schedule. ``storage`` is the JAX
-    package's factor storage knob: only None is ported.
+    streamed backend's panel width or schedule; ``storage`` (None or
+    ``"bf16"``) and ``precision`` are the streamed factorization's
+    (``ops/streamed.streamed_cholesky_factor``). ``precision`` applies where
+    ``backend="auto"`` resolves to the streamed backend and raises for
+    ``"dense"``, as in the JAX package.
     """
     check_backend(backend, storage)
     n, _ = x.shape
@@ -163,10 +191,12 @@ def make_state(
     x_pad, r_pad = pad_capacity(x, y - prior.mean(x), cap)
     if isinstance(block, list):
         block = tuple(block)
-    l_pad, ok = _build_factor(kernel, x_pad, n, noise, eps, method, backend, block)
+    l_pad, ok = _build_factor(kernel, x_pad, n, noise, eps, method, backend, block,
+                              storage=storage, precision=precision)
     state = GPState(
         x=x_pad, resid=r_pad, l=l_pad, n=n, noise=noise, kernel=kernel,
         prior=prior, eps=eps, method=method, backend=backend, block=block,
+        storage=storage, precision=precision,
     )
     return state, ok
 
@@ -186,20 +216,24 @@ def rebuild_cholesky(state: GPState, reuse_buffer: bool = False) -> tuple[GPStat
     l_pad, ok = _build_factor(
         state.kernel, state.x, state.n, state.noise, state.eps, state.method,
         state.backend, state.block, l0=state.l if reuse_buffer else None,
+        storage=state.storage, precision=state.precision,
     )
     return state.replace(l=l_pad), ok
 
 
-def grow_capacity(state: GPState, new_cap: int) -> GPState:
+def grow_capacity(state: GPState, new_cap: int, copy_factor: bool = True) -> GPState:
     """Capacity growth: zero-pad data, extend the Cholesky factor with the
     identity. Mirrors ``EMatrix`` x1.5 growth
-    (``extendable_matrix.rs:30-49``)."""
+    (``extendable_matrix.rs:30-49``). ``copy_factor=False`` leaves the
+    enlarged factor the bare identity, for a caller that rebuilds it at once
+    (the bf16-storage append)."""
     cap = state.capacity
     if new_cap <= cap:
         return state
     x, r = pad_capacity(state.x, state.resid, new_cap)
     l_new = torch.eye(new_cap, dtype=state.l.dtype, device=state.l.device)
-    l_new[:cap, :cap] = state.l
+    if copy_factor:
+        l_new[:cap, :cap] = state.l
     return state.replace(x=x, resid=r, l=l_new)
 
 
@@ -230,6 +264,24 @@ def add_samples_padded(state: GPState, x_new: torch.Tensor, y_new: torch.Tensor,
     return state.replace(x=x_pad, resid=r_pad, l=l_pad, n=n + k)
 
 
+def add_samples_rebuild(state: GPState, x_new: torch.Tensor, y_new: torch.Tensor,
+                        reuse_buffer: bool = False) -> tuple[GPState, torch.Tensor]:
+    """Append samples by a whole refactorization: the bf16-storage append
+    (``friedrich_tpu/models/gp.py:425-455``). A rank-k update against the
+    bfloat16-rounded factor goes indefinite where the float32 one does not,
+    so the data buffers take the new rows and the factor is rebuilt.
+    ``reuse_buffer=True`` rebuilds into ``state.l`` (whose factor is then
+    lost); ``state``'s other buffers are not changed. Returns ``(state,
+    ok)`` like :func:`make_state`."""
+    n, k = state.n, x_new.shape[0]
+    x_pad = state.x.clone()
+    x_pad[n:n + k] = x_new
+    r_pad = state.resid.clone()
+    r_pad[n:n + k] = y_new - state.prior.mean(x_new)
+    return rebuild_cholesky(state.replace(x=x_pad, resid=r_pad, n=n + k),
+                            reuse_buffer=reuse_buffer)
+
+
 def repair_failed_append(l_pad: torch.Tensor, n_old: int, k: int) -> None:
     """Put rows ``[n_old, n_old + k)`` of a factor back to the identity
     padding, in place: the only rows an in-place append writes (the JAX
@@ -243,6 +295,31 @@ def repair_failed_append(l_pad: torch.Tensor, n_old: int, k: int) -> None:
 # ---------------------------------------------------------------------------
 # Prediction (``mod.rs:226-350``)
 # ---------------------------------------------------------------------------
+
+
+def _use_blocked(state: GPState) -> bool:
+    """A bfloat16 factor is solved by the panel sweeps of
+    ``ops/blocked_solve.py``, which cast one panel at a time; any other by
+    ``torch.linalg.solve_triangular`` on the whole factor."""
+    return state.l.dtype == torch.bfloat16
+
+
+def _solve_lower(state: GPState, c: torch.Tensor) -> torch.Tensor:
+    if _use_blocked(state):
+        return blocked_solve_lower(state.l, c)
+    return solve_lower(state.l, c)
+
+
+def _solve_lower_t(state: GPState, c: torch.Tensor) -> torch.Tensor:
+    if _use_blocked(state):
+        return blocked_solve_lower_t(state.l, c)
+    return solve_lower_t(state.l, c)
+
+
+def _cho_solve(state: GPState, c: torch.Tensor) -> torch.Tensor:
+    if _use_blocked(state):
+        return blocked_cho_solve(state.l, c)
+    return cho_solve(state.l, c)
 
 
 def _train_cross(state: GPState, xq: torch.Tensor) -> torch.Tensor:
@@ -264,8 +341,8 @@ class PredictWeights(NamedTuple):
 
 def derive_weights(state: GPState) -> PredictWeights:
     """Compute :class:`PredictWeights` (two single-column sweeps)."""
-    beta = solve_lower(state.l, state.resid)
-    return PredictWeights(beta=beta, alpha=solve_lower_t(state.l, beta))
+    beta = _solve_lower(state, state.resid)
+    return PredictWeights(beta=beta, alpha=_solve_lower_t(state, beta))
 
 
 def predict_mean(
@@ -275,7 +352,7 @@ def predict_mean(
     c = _train_cross(state, xq)
     if weights is not None:
         return state.prior.mean(xq) + c.mT @ weights.alpha
-    w = cho_solve(state.l, c)
+    w = _cho_solve(state, c)
     return state.prior.mean(xq) + w.mT @ state.resid
 
 
@@ -285,7 +362,7 @@ def predict_variance(
     """Latent predictive variance — observation noise NOT added back,
     matching ``mod.rs:248-273`` (see ``:266-269``)."""
     del weights  # the variance needs only the factor
-    kl = solve_lower(state.l, _train_cross(state, xq))
+    kl = _solve_lower(state, _train_cross(state, xq))
     return kernel_diag(state.kernel, xq) - torch.sum(kl * kl, dim=0)
 
 
@@ -297,10 +374,10 @@ def predict_mean_variance(
     c = _train_cross(state, xq)
     base = kernel_diag(state.kernel, xq)
     if weights is not None:
-        kl = solve_lower(state.l, c)
+        kl = _solve_lower(state, c)
         mean = state.prior.mean(xq) + kl.mT @ weights.beta
         return mean, base - torch.sum(kl * kl, dim=0)
-    w = cho_solve(state.l, c)
+    w = _cho_solve(state, c)
     mean = state.prior.mean(xq) + w.mT @ state.resid
     var = base - torch.sum(c * w, dim=0)  # column-dot form of mod.rs:314-319
     return mean, var
@@ -309,7 +386,7 @@ def predict_mean_variance(
 def predict_covariance(state: GPState, xq: torch.Tensor) -> torch.Tensor:
     """Full posterior covariance ``Kqq - (L^-1 Kq)^T (L^-1 Kq)``
     (``mod.rs:329-350``)."""
-    kl = solve_lower(state.l, _train_cross(state, xq))
+    kl = _solve_lower(state, _train_cross(state, xq))
     kqq = cross_covariance(state.kernel, xq, xq, method=state.method)
     return kqq - kl.mT @ kl
 
@@ -324,9 +401,9 @@ def posterior(
     c = _train_cross(state, xq)
     kqq = cross_covariance(state.kernel, xq, xq, method=state.method)
     if weights is not None:
-        kl = solve_lower(state.l, c)
+        kl = _solve_lower(state, c)
         return state.prior.mean(xq) + kl.mT @ weights.beta, kqq - kl.mT @ kl
-    w = cho_solve(state.l, c)
+    w = _cho_solve(state, c)
     return state.prior.mean(xq) + w.mT @ state.resid, kqq - c.mT @ w
 
 
@@ -349,7 +426,7 @@ def likelihood(
     exact score is :func:`log_marginal_likelihood`. ``weights.beta`` (if
     given) IS the forward solve ``L^-1 resid``.
     """
-    ol = weights.beta if weights is not None else solve_lower(state.l, state.resid)
+    ol = weights.beta if weights is not None else _solve_lower(state, state.resid)
     data_fit = torch.sum(ol * ol)
     diag = kernel_diag(state.kernel, state.x) + state.noise * state.noise
     complexity = torch.sum(torch.where(_live(state), torch.log(torch.abs(diag)), 0.0))
@@ -361,8 +438,8 @@ def log_marginal_likelihood(
 ) -> torch.Tensor:
     """Exact log marginal likelihood (corrected variant):
     ``-1/2 (r^T K^-1 r + ln|K| + n ln 2pi)`` with ``ln|K| = 2 sum ln L_ii``."""
-    ol = weights.beta if weights is not None else solve_lower(state.l, state.resid)
+    ol = weights.beta if weights is not None else _solve_lower(state, state.resid)
     data_fit = torch.sum(ol * ol)
-    diag_l = torch.diagonal(state.l)
+    diag_l = torch.diagonal(state.l).to(ol.dtype)
     logdet = 2.0 * torch.sum(torch.where(_live(state), torch.log(diag_l), 0.0))
     return -(data_fit + logdet + state.n * LOG_2PI) / 2.0

@@ -36,10 +36,9 @@ from typing import Optional
 import torch
 
 from .. import config
-from ..ops.cholesky import cho_solve
 from ..ops.streamed_matvec import rademacher_probes, streamed_grad_matvec
 from ..utils.errors import CholeskyError, ConfigError
-from .gp import GPState, rebuild_cholesky, resolve_backend
+from .gp import GPState, _cho_solve, rebuild_cholesky, resolve_backend
 from .optimizer import AdamState, _adam_delta, _init_params, log_iteration
 
 
@@ -59,7 +58,8 @@ def _grad_step_large(state: GPState, adam: AdamState, probes: torch.Tensor, i: i
     (``optimizer.rs:113-122``) and, on the scaled path, the closed-form
     rescale (``optimizer.rs:174,262-263``); ``progress`` is a bool and
     ``info`` carries ``max_delta`` and ``scale`` for the fit log."""
-    sol = cho_solve(state.l, torch.cat([state.resid[:, None], probes], dim=1))
+    # a bf16-stored factor goes through the panel sweeps (``models/gp._cho_solve``)
+    sol = _cho_solve(state, torch.cat([state.resid[:, None], probes], dim=1))
     alpha, kinv_z = sol[:, 0], sol[:, 1:]
     dk_v = streamed_grad_matvec(
         state.kernel, state.x, state.n, torch.cat([alpha[:, None], probes], dim=1),

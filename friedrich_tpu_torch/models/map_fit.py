@@ -31,17 +31,20 @@ from .gp import GPState, rebuild_cholesky
 
 def check_density_memory(state: GPState) -> None:
     """Raise :class:`ConfigError` when the density cannot run on the card:
-    each evaluation factors a new (cap, cap) matrix beside the model's own
-    factor, and two factors of this capacity do not fit
-    (``config.two_matrices_fit``) — the fit would end in a device OOM."""
-    itemsize = state.l.element_size()
+    each evaluation factors a new (cap, cap) matrix in the compute dtype
+    beside the model's own factor (bfloat16 under bf16 storage), and the two
+    do not fit (``config.two_matrices_fit``) — the fit would end in a device
+    OOM."""
+    # mean entry size of the model's factor and the density's
+    itemsize = (state.l.element_size() + state.x.element_size()) / 2
     if not config.two_matrices_fit(state.capacity, itemsize, state.l.device):
-        factor_gb = state.capacity**2 * itemsize / 2**30
+        new_gb = state.capacity**2 * state.x.element_size() / 2**30
+        model_gb = state.capacity**2 * state.l.element_size() / 2**30
         raise ConfigError(
             f"the exact-LML fit at capacity {state.capacity} factors a new covariance beside "
-            f"the model's factor, and two {factor_gb:.1f} GB factors cannot coexist in device "
-            f"memory. Use fit_parameters() (its streamed rebuilds reuse the factor's buffer), "
-            f"or fit a subsample."
+            f"the model's factor, and two {new_gb:.1f} GB and {model_gb:.1f} GB factors cannot "
+            f"coexist in device memory. Use fit_parameters() (its streamed rebuilds reuse the "
+            f"factor's buffer), or fit a subsample."
         )
 
 

@@ -41,7 +41,7 @@ from ..config import (
 from ..ops.cholesky import cho_solve
 from ..ops.covariance import gradient_covariances_padded
 from ..utils.errors import CholeskyError
-from .gp import GPState, log_marginal_likelihood, make_state, rebuild_cholesky
+from .gp import GPState, log_marginal_likelihood, make_state, rebuild_cholesky, resolve_backend
 
 BETA1 = 0.9
 BETA2 = 0.999
@@ -70,8 +70,10 @@ def _adam_delta(adam: AdamState, grads: torch.Tensor, i: int) -> tuple[AdamState
 
 def _inverse_and_alpha(state: GPState) -> tuple[torch.Tensor, torch.Tensor]:
     """K^-1 (padded: identity in the dead block) and alpha = K^-1 r."""
-    eye = torch.eye(state.capacity, dtype=state.l.dtype, device=state.l.device)
-    return cho_solve(state.l, eye), cho_solve(state.l, state.resid)
+    # a bf16-stored factor solves in the residuals' (compute) dtype
+    l_mat = state.l.to(state.resid.dtype)
+    eye = torch.eye(state.capacity, dtype=l_mat.dtype, device=l_mat.device)
+    return cho_solve(l_mat, eye), cho_solve(l_mat, state.resid)
 
 
 def _per_param_grads(state: GPState, cov_inv: torch.Tensor,
@@ -282,10 +284,14 @@ def fit_subsampled(
                                 gradient=gradient, num_probes=num_probes, seed=seed)
     idx = subset_indices(n, s, seed, state.x.device)
     x_sub = state.x[idx]
+    # the sub-model stores its factor in the compute dtype and takes the
+    # factor precision where "auto" streams it (``models/builder.py``)
+    streamed = resolve_backend("auto", s, state.x.dtype, state.x.device) == "streamed"
     sub_state, ok = make_state(
         state.kernel, state.prior, state.noise, x_sub,
         state.resid[idx] + state.prior.mean(x_sub), eps=state.eps,
         method=state.method, backend="auto",
+        precision=state.precision if streamed else None,
     )
     if not bool(ok):
         raise CholeskyError()

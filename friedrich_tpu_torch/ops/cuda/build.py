@@ -246,12 +246,23 @@ def library():
                 ctypes.c_int, ctypes.c_int, LeafConstants, Program, ptr,
             ]
             fn.restype = ctypes.c_int
-        for fn in (lib.friedrich_panel_strip_f32, lib.friedrich_panel_strip_f64):
+        for fn in (lib.friedrich_panel_strip_f32, lib.friedrich_panel_strip_f32_1pass,
+                   lib.friedrich_panel_strip_bf16, lib.friedrich_panel_strip_f64):
             fn.argtypes = [
                 ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ll, ctypes.c_int, ll, ll, ll, ctypes.c_double,
                 ctypes.c_int, ctypes.c_int, Program, ptr,
             ]
+            fn.restype = ctypes.c_int
+        lib.friedrich_host_register.argtypes = [ptr, ctypes.c_size_t]
+        lib.friedrich_host_unregister.argtypes = [ptr]
+        lib.friedrich_host_is_locked.argtypes = [ptr]
+        lib.friedrich_copy_2d.argtypes = [
+            ptr, ctypes.c_size_t, ptr, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t,
+            ctypes.c_int, ptr,
+        ]
+        for fn in (lib.friedrich_host_register, lib.friedrich_host_unregister,
+                   lib.friedrich_host_is_locked, lib.friedrich_copy_2d):
             fn.restype = ctypes.c_int
         lib.friedrich_cuda_error_string.argtypes = [ctypes.c_int]
         lib.friedrich_cuda_error_string.restype = ctypes.c_char_p

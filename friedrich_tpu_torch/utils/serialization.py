@@ -11,7 +11,8 @@ loads in the other: one ``.npz`` holding ``header`` (JSON as ``uint8``),
 ``x``, ``resid``, ``l`` and ``noise``. The header carries ``version``,
 ``kernel`` and ``prior`` (the spec dicts of :mod:`..interop`), ``eps``,
 ``method``, ``backend``, ``storage``, ``block``, ``precision``, ``n`` and
-``dtype`` (numpy's name, e.g. ``"float32"``).
+``dtype`` (numpy's name, e.g. ``"float32"``). A bf16-stored factor is written
+as its raw bits, ``uint16``, since ``.npz`` has no bfloat16.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..utils.errors import not_ported
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -46,9 +46,9 @@ def save_gp(gp, path) -> None:
         "eps": state.eps,
         "method": state.method,
         "backend": state.backend,
-        "storage": None,
+        "storage": state.storage,
         "block": list(state.block) if isinstance(state.block, tuple) else state.block,
-        "precision": None,
+        "precision": state.precision,
         "n": int(state.n),
         "dtype": str(state.x.dtype).removeprefix("torch."),
     }
@@ -57,26 +57,42 @@ def save_gp(gp, path) -> None:
         header=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8),
         x=state.x.cpu().numpy(),
         resid=state.resid.cpu().numpy(),
-        l=state.l.cpu().numpy(),
+        l=factor_to_numpy(state.l),
         noise=state.noise.cpu().numpy(),
     )
+
+
+def factor_to_numpy(l_mat: torch.Tensor) -> np.ndarray:
+    """A factor as numpy: a bfloat16 one as its raw bits, ``uint16``."""
+    if l_mat.dtype == torch.bfloat16:
+        return l_mat.cpu().view(torch.int16).numpy().view(np.uint16)
+    return l_mat.cpu().numpy()
+
+
+def factor_from_numpy(l_np: np.ndarray, storage, dtype: torch.dtype, device) -> torch.Tensor:
+    """Inverse of :func:`factor_to_numpy`: with ``storage="bf16"`` the
+    array's 16-bit patterns (``uint16``, or a numpy bfloat16 array, read
+    through a view) become a bfloat16 tensor; otherwise ``dtype``."""
+    if storage == "bf16":
+        bits = np.ascontiguousarray(l_np).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.as_tensor(l_np, dtype=dtype, device=device)
 
 
 def load_gp(path):
     """A :class:`~..models.api.GaussianProcess` from a file written by
     :func:`save_gp` or by the JAX package, on the default device
-    (:func:`~..config.resolve_device`). A bf16-stored factor, a factor
-    precision or a tiled/hybrid backend raises: none is ported."""
+    (:func:`~..config.resolve_device`). A tiled/hybrid backend raises: it is
+    not ported."""
     from ..interop import kernel_from_spec, prior_from_spec
     from ..models.api import GaussianProcess
     from ..models.gp import GPState, check_backend
 
     with np.load(_npz_path(path)) as data:
         header = json.loads(bytes(data["header"]).decode())
-        if header.get("precision") is not None:
-            raise not_ported(f"factor precision {header['precision']!r}")
         backend = header.get("backend", "dense")
-        check_backend(backend, header.get("storage"))
+        storage = header.get("storage")
+        check_backend(backend, storage)
         dtype = _DTYPES[header["dtype"]]
         device = resolve_device()
 
@@ -85,10 +101,12 @@ def load_gp(path):
 
         block = header.get("block")
         state = GPState(
-            x=t("x"), resid=t("resid"), l=t("l"), n=int(header["n"]), noise=t("noise"),
+            x=t("x"), resid=t("resid"), l=factor_from_numpy(data["l"], storage, dtype, device),
+            n=int(header["n"]), noise=t("noise"),
             kernel=kernel_from_spec(header["kernel"]).to(dtype, device),
             prior=prior_from_spec(header["prior"]).to(dtype, device),
             eps=header["eps"], method=header["method"], backend=backend,
             block=tuple(block) if isinstance(block, list) else block,
+            storage=storage, precision=header.get("precision"),
         )
     return GaussianProcess(state)

@@ -134,6 +134,175 @@ def test_panel_strip_matches_plain_version(card, name, dtype, rtol, atol, unit, 
         assert bool(((got - want).abs() <= atol + rtol * want.abs() + bound).all())
 
 
+def _strip_bound(p, block, j0, unit):
+    """j0 u (|P| |P[:B]|^T): float32 accumulation of the downdate."""
+    return j0 * unit * (p.abs() @ p[:block].abs().mT)
+
+
+# The bfloat16-prefix and single-pass instantiations against the plain
+# version in the same operand arithmetic (a bfloat16 prefix upcast; a float32
+# prefix rounded to bfloat16 under precision "bf16"): each product is exact,
+# so only float32 accumulation separates them. Capacity 1,000 takes TMA for
+# both; 1,001 and 1,003 take the bfloat16 kernel's plain loads (row stride
+# not a multiple of 8) and, for 1,001 and 1,003, the single pass's cp.async.
+# j0 is not a multiple of 64 (one bfloat16 stage). NaN right of j0 must
+# never be read.
+@pytest.mark.parametrize("cap", (1000, 1001, 1003))
+@pytest.mark.parametrize("kind", ("bf16", "one_pass"))
+@pytest.mark.parametrize("name", KERNELS)
+def test_panel_strip_bf16_instantiations_match_plain_version(card, name, kind, cap):
+    rng = np.random.default_rng(75)
+    n = 937
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), dtype=torch.float32, device=card)
+    l_np = np.tril(rng.normal(size=(cap, cap)) * 0.1)
+    ldtype, precision = (torch.bfloat16, None) if kind == "bf16" else (torch.float32, "bf16")
+    kern = KERNELS[name].to(torch.float32, card)
+    for j0, block in ((0, 384), (300, 384), (333, 500), (801, cap - 801)):
+        l_full = torch.as_tensor(l_np, dtype=ldtype, device=card)
+        l_full[:, j0:] = float("nan")
+        before = dict(pc.LAUNCHES_BY_VARIANT)
+        got = panel_fused.panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, 0.3, j0, block,
+                                      precision=precision)
+        assert pc.LAUNCHES_BY_VARIANT[kind] == before[kind] + 1
+        want = panel_fused.plain_panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, 0.3, j0,
+                                             block, precision=precision)
+        p = panel_fused.downdate_operand(l_full[j0:, :j0], torch.float32, precision)
+        bound = _strip_bound(p, block, j0, 2.0**-24)
+        assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs() + bound).all())
+
+
+# The explicit prefix (the out-of-core factorization's first chunk): a
+# contiguous (cap - j0, C) tensor, C = 0 (the kernel strip alone), a multiple
+# of 8 (TMA) and 300 (float32 TMA, bfloat16 plain loads).
+@pytest.mark.parametrize("width", (0, 256, 300))
+@pytest.mark.parametrize("kind", ("tf32x3", "bf16", "one_pass"))
+def test_panel_strip_explicit_prefix_matches_plain_version(card, kind, width):
+    rng = np.random.default_rng(76)
+    cap, n, j0, block = 1000, 950, 416, 320
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), dtype=torch.float32, device=card)
+    ldtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    precision = "bf16" if kind == "one_pass" else None
+    prefix = torch.as_tensor(rng.normal(size=(cap - j0, width)) * 0.1, dtype=ldtype, device=card)
+    kern = KERNELS["Composite"].to(torch.float32, card)
+    before = pc.LAUNCHES_BY_VARIANT[kind]
+    got = panel_fused.panel_strip(kern, x[j0:], x[j0:j0 + block], None, n, 0.3, j0, block,
+                                  precision=precision, prefix=prefix)
+    assert pc.LAUNCHES_BY_VARIANT[kind] == before + 1
+    want = panel_fused.plain_panel_strip(kern, x[j0:], x[j0:j0 + block], None, n, 0.3, j0, block,
+                                         precision=precision, prefix=prefix)
+    p = panel_fused.downdate_operand(prefix, torch.float32, precision)
+    split = pc.SPLIT_ERROR if kind == "tf32x3" else 0.0
+    bound = (width * 2.0**-24 + split) * (p.abs() @ p[:block].abs().mT)
+    assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs() + bound).all())
+
+
+@pytest.mark.parametrize("storage,precision,kind", (("bf16", None, "bf16"), (None, "bf16", "one_pass")))
+def test_streamed_factor_runs_only_its_instantiation(card, storage, precision, kind):
+    rng = np.random.default_rng(77)
+    x = torch.as_tensor(rng.normal(size=(1024, 4)), dtype=torch.float32, device=card)
+    kern = KERNELS["SquaredExp"].to(torch.float32, card)
+    before = dict(pc.LAUNCHES_BY_VARIANT)
+    got, ok = streamed_cholesky_factor(kern, x, 1000, 0.5, block=256, storage=storage,
+                                       precision=precision)
+    after = dict(pc.LAUNCHES_BY_VARIANT)
+    assert bool(ok)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: (4 if k == kind else 0) for k in after}
+    want, _ = streamed_cholesky_factor(kern.to(torch.float32, "cpu"), x.cpu(), 1000, 0.5, block=256,
+                                       storage=storage, precision=precision)
+    # the card's and the CPU's float32 summation orders, rounded at write-back
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=0, atol=2e-2)
+
+
+def test_bf16_append_on_the_card_matches_the_cpu(card):
+    import friedrich_tpu_torch as ft
+
+    rng = np.random.default_rng(78)
+    x = rng.normal(size=(900, 4)).astype(np.float32)
+    y = np.sin(x.sum(1)).astype(np.float32)
+    x2 = rng.normal(size=(100, 4)).astype(np.float32)
+    y2 = np.cos(x2.sum(1)).astype(np.float32)
+    xq = rng.normal(size=(16, 4)).astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        gp = (ft.GaussianProcessBuilder(x, y, device=device).set_kernel(tk.SquaredExp(ls=1.0, ampl=1.0))
+              .set_noise(0.3).set_dtype("float32").set_backend("streamed").set_factor_storage("bf16")
+              .set_capacity(1024).set_panel_block(256).train())
+        before = pc.LAUNCHES_BY_VARIANT["bf16"]
+        gp.add_samples(x2, y2)
+        if device == "cuda":
+            assert pc.LAUNCHES_BY_VARIANT["bf16"] == before + 4
+        assert gp.state.l.dtype == torch.bfloat16 and gp.num_samples == 1000
+        out[device] = gp.predict_mean_variance(xq)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("storage", (None, "bf16"))
+def test_outofcore_factor_on_the_card(card, storage):
+    from friedrich_tpu_torch.ops import outofcore as ooc
+
+    rng = np.random.default_rng(79)
+    cap, n, block = 4096, 4000, 1024
+    x = torch.as_tensor(rng.normal(size=(cap, 8)), dtype=torch.float32, device=card)
+    kern = tk.SquaredExp(ls=1.0, ampl=1.0).to(torch.float32, card)
+    kind = "bf16" if storage else "tf32x3"
+    before, up, down = pc.LAUNCHES_BY_VARIANT[kind], ooc.TRAFFIC["up"], ooc.TRAFFIC["down"]
+    l_host, ok = ooc.outofcore_cholesky_factor(kern, x, n, 1.0, block=block, storage=storage)
+    assert ok and l_host.device.type == "cpu" and l_host.dtype == ooc.HOST_DTYPES[storage]
+    assert pc.LAUNCHES_BY_VARIANT[kind] == before + cap // block
+    es = l_host.element_size()
+    panels = cap // block
+    # rows >= j0 only: chunks i < j of panel j, and each finished strip once
+    want_up = sum((cap - j * block) * block * j for j in range(panels)) * es
+    want_down = sum((cap - j * block) * block for j in range(panels)) * es
+    assert (ooc.TRAFFIC["up"] - up, ooc.TRAFFIC["down"] - down) == (want_up, want_down)
+    want, _ = streamed_cholesky_factor(kern, x, n, 1.0, block=block, storage=storage)
+    want = want.float().cpu()
+    if storage is None:
+        torch.testing.assert_close(l_host, want, rtol=0, atol=5e-5)
+    else:
+        # two bfloat16 ulps of each entry (2^-6 relative), above a floor
+        bound = 2.0**-6 * want.abs() + 2.0**-12 * float(want.abs().max())
+        assert bool(((l_host.float() - want).abs() <= bound).all())
+    c = torch.as_tensor(rng.normal(size=(cap, 3)), dtype=torch.float32, device=card)
+    got = ooc.outofcore_cho_solve(l_host, c)
+    ref = torch.cholesky_solve(c.double().cpu(), l_host.double())
+    torch.testing.assert_close(got.double().cpu(), ref, rtol=0, atol=5e-3)
+
+
+def test_from_factor_page_locks_the_host_factor(card):
+    """A host factor handed to a model on the card is page-locked in place,
+    and the model refactors into it; a carried JAX model's factor too."""
+    import friedrich_tpu_torch.priors as tp
+    from friedrich_tpu_torch import OutOfCoreGP, interop
+    from friedrich_tpu_torch.ops import outofcore as ooc
+
+    rng = np.random.default_rng(83)
+    cap, n, block = 2048, 2000, 512
+    x = np.zeros((cap, 4), np.float32)
+    x[:n] = rng.normal(size=(n, 4))
+    resid = np.zeros(cap, np.float32)
+    resid[:n] = np.sin(x[:n, 0])
+    kern = tk.SquaredExp(ls=1.0, ampl=1.0)
+    l_cpu, ok = ooc.outofcore_cholesky_factor(kern.to(torch.float32, "cpu"), torch.as_tensor(x), n,
+                                              0.5, block=block)
+    assert ok and not ooc.is_page_locked(l_cpu)
+    gp = OutOfCoreGP.from_factor(kern, tp.ZeroPrior(), 0.5, x, resid, n, l_cpu.clone(), block=block,
+                                 device=card)
+    assert ooc.is_page_locked(gp.l_host)
+    ptr, mean = gp.l_host.data_ptr(), gp.predict(x[:7])
+    gp.set_hyperparameters(noise=0.5)
+    assert gp.l_host.data_ptr() == ptr and ooc.is_page_locked(gp.l_host)
+    torch.testing.assert_close(gp.l_host, l_cpu, rtol=0, atol=5e-5)
+    torch.testing.assert_close(gp.predict(x[:7]), mean, rtol=0, atol=2e-4)
+    arrays = {"x": x, "resid": resid, "n": n, "noise": np.float32(0.5), "l_host": l_cpu.numpy()}
+    carried = interop.outofcore_from_arrays(arrays, interop.kernel_spec(kern),
+                                            interop.prior_spec(tp.ZeroPrior()), block=block,
+                                            device=card)
+    assert ooc.is_page_locked(carried.l_host)
+
+
 def test_streamed_factor_on_the_card_matches_the_cpu(card):
     rng = np.random.default_rng(73)
     x = rng.normal(size=(1300, 4))

@@ -86,7 +86,8 @@ def test_make_state_fields_match_jax(case):
     arrays, kspec, pspec, static = interop.state_to_arrays(carried)
     assert kspec == _kernel_spec(jstate.kernel) and pspec == _prior_spec(jstate.prior)
     assert static == {"eps": jstate.eps, "method": jstate.method, "backend": jstate.backend,
-                      "block": jstate.block}
+                      "block": jstate.block, "storage": jstate.storage,
+                      "precision": jstate.precision}
     for field in ("x", "resid", "l", "noise"):
         np.testing.assert_array_equal(arrays[field], np.asarray(getattr(jstate, field)))
 

@@ -9,7 +9,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "friedrich_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "friedrich_tpu", "ml_dtypes")
 SOURCES = sorted((ROOT / "friedrich_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -32,7 +32,7 @@ def test_source_imports_nothing_of_jax(path):
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'friedrich_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'friedrich_tpu', 'ml_dtypes'):\n"
         "    sys.modules[name] = None\n"
         "import friedrich_tpu_torch, friedrich_tpu_torch.demo, friedrich_tpu_torch.interop\n"
         "import friedrich_tpu_torch.ops.cuda.covariance_cuda\n"
@@ -41,6 +41,9 @@ def test_package_imports_with_jax_blocked():
         "import friedrich_tpu_torch.mcmc.nuts, friedrich_tpu_torch.mcmc.hmc\n"
         "import friedrich_tpu_torch.mcmc.predictive, friedrich_tpu_torch.mcmc.diagnostics\n"
         "import friedrich_tpu_torch.utils.fitlog\n"
+        "import friedrich_tpu_torch.ops.blocked_solve, friedrich_tpu_torch.ops.outofcore\n"
+        "import friedrich_tpu_torch.models.outofcore_gp\n"
+        "from friedrich_tpu_torch import OutOfCoreGP\n"
         "from friedrich_tpu_torch.mcmc import sample_hyperparameters\n"
         "print('ok')\n"
     )

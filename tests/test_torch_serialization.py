@@ -150,6 +150,10 @@ def test_streamed_state_with_a_block_round_trips(tmp_path, block):
                                atol=TOL_CROSS)
 
 
+# bf16 storage and a factor precision are ported: a header carrying them
+# loads (under "bf16" storage, a streamed-backend knob, the factor is read
+# as bfloat16 bits, so the case stores the factor's bits as the JAX package
+# writes them); a tiled backend still raises.
 @pytest.mark.parametrize("header", ({"storage": "bf16"}, {"precision": "f32"}, {"backend": "tiled"}),
                          ids=("bf16-storage", "precision", "tiled"))
 def test_headers_of_paths_not_yet_ported_raise(tmp_path, header):
@@ -160,6 +164,18 @@ def test_headers_of_paths_not_yet_ported_raise(tmp_path, header):
     meta = json.loads(bytes(arrays["header"]).decode())
     meta.update(header)
     arrays["header"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    if header.get("storage") == "bf16":
+        # bf16 storage is a streamed-backend knob
+        meta["backend"] = "streamed"
+        arrays["header"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+        bits = torch.as_tensor(arrays["l"]).to(torch.bfloat16)
+        arrays["l"] = bits.view(torch.int16).numpy().view(np.uint16)
     np.savez(tmp_path / "edited.npz", **arrays)
-    with pytest.raises(tft.ConfigError, match="not yet ported to friedrich_tpu_torch"):
-        tft.GaussianProcess.load(tmp_path / "edited.npz")
+    if "backend" in header:
+        with pytest.raises(tft.ConfigError, match="not yet ported to friedrich_tpu_torch"):
+            tft.GaussianProcess.load(tmp_path / "edited.npz")
+        return
+    loaded = tft.GaussianProcess.load(tmp_path / "edited.npz")
+    assert (loaded.state.storage, loaded.state.precision) == (meta["storage"], meta["precision"])
+    want_dtype = torch.bfloat16 if meta["storage"] == "bf16" else torch.float64
+    assert loaded.state.l.dtype == want_dtype

@@ -365,22 +365,32 @@ def test_auto_backend_rule(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# (h): what still raises
+# (h): the storage and precision knobs, which raised until they were ported
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("call", [
-    lambda x: streamed_cholesky_factor(tk.SquaredExp(), x, 4, 0.1, storage="bf16"),
-    lambda x: streamed_cholesky_factor(tk.SquaredExp(), x, 4, 0.1, precision="f32x3"),
-    lambda x: tft.GaussianProcessBuilder(x, x[:, 0]).set_factor_storage("bf16"),
-    lambda x: tft.GaussianProcessBuilder(x, x[:, 0]).set_factor_precision("bf16"),
-    lambda x: tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, x, x[:, 0],
-                                      backend="streamed", storage="bf16"),
-    lambda x: tft.GaussianProcessBuilder(x, x[:, 0]).set_backend("tiled"),
+# Each case raised "not yet ported"; now the knob runs on float32 inputs and
+# refuses float64 ones with the JAX package's error for bf16 storage, and
+# the tiled backend still raises.
+@pytest.mark.parametrize("call,match", [
+    (lambda x: streamed_cholesky_factor(tk.SquaredExp(), x, 4, 0.1, storage="bf16"), "float32 inputs"),
+    (lambda x: streamed_cholesky_factor(tk.SquaredExp(), x.float(), 4, 0.1, block=2,
+                                        precision="f32x3")[0].dtype == torch.float32, None),
+    (lambda x: isinstance(tft.GaussianProcessBuilder(x, x[:, 0]).set_factor_storage("bf16"),
+                          tft.GaussianProcessBuilder), None),
+    (lambda x: isinstance(tft.GaussianProcessBuilder(x, x[:, 0]).set_factor_precision("bf16"),
+                          tft.GaussianProcessBuilder), None),
+    (lambda x: tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, x, x[:, 0],
+                                       backend="streamed", storage="bf16"), "float32 inputs"),
+    (lambda x: tft.GaussianProcessBuilder(x, x[:, 0]).set_backend("tiled"),
+     "not yet ported to friedrich_tpu_torch"),
 ], ids=["storage", "precision", "builder-storage", "builder-precision", "new-storage", "tiled"])
-def test_streamed_knobs_not_ported_raise(call):
+def test_streamed_knobs_not_ported_raise(call, match):
     x = torch.arange(8, dtype=torch.float64).reshape(4, 2)
-    with pytest.raises(tft.ConfigError, match="not yet ported to friedrich_tpu_torch"):
+    if match is None:
+        assert call(x)
+        return
+    with pytest.raises(tft.ConfigError, match=match):
         call(x)
 
 
