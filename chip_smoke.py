@@ -9,8 +9,10 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 1. environment: card name and power limit, torch and CUDA versions, float32
    matmuls in full precision, and the build of the kernels from
    ``friedrich_tpu_torch/csrc/`` with ``nvcc`` (timed), with each
-   instantiation's registers and spills (a spilling covariance-kernel
-   instantiation fails);
+   instantiation's registers and spills (a spilling covariance-kernel or
+   warp-specialized panel-strip instantiation fails, and so does one of the
+   latter that does not start at 168 registers a thread, the count its
+   setmaxnreg split assumes);
 2. the covariance kernel against its plain PyTorch version on the card, for
    the nine kernels (each its own compiled-in map) plus Sum, Prod and a
    deeper composition (the interpreter), in train mode (whole matrix and a
@@ -105,7 +107,10 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    instantiation only, the bf16 models' predictions within 0.05 of the
    float32 model's, and the single-pass instantiation against its plain
    version on three panels and timed beside ``torch.addmm`` under
-   "medium"; (8c) ``OutOfCoreGP`` at n=100,000 with a bf16 host factor
+   "medium" (their ratio printed); the downdates of both bf16-product
+   instantiations at their middle panels within twice the error against
+   float64 of their previous design (a 128 x 128 tile per block, no
+   producer warp); (8c) ``OutOfCoreGP`` at n=100,000 with a bf16 host factor
    (``scripts/check100k_outofcore.py``'s configuration: 22.7 GB of
    page-locked host memory, panels of 8,192): the host's ``free -b``, the
    link's copy rates, the factor's time, bytes up and down and host and
@@ -243,18 +248,25 @@ def ptxas_table(report: str) -> dict:
             spill = 0
             continue
         m = re.search(r"Compiling entry function '\w*?\d+(panel_strip_kernel|panel_strip_tf32x3_kernel|"
-                      r"panel_strip_bf16_kernel)I(\w*?)EEv", line)
+                      r"panel_strip_ws_kernel)I(\w*?)EEv", line)
         if m:
             raw = m.group(2)
             parts = [dtypes[raw[0]]] if raw[0] in dtypes else []
-            parts += [methods[v] for v in re.findall(r"Li(\d+)E", raw)]
+            ints = re.findall(r"Li(\d+)E", raw)
+            if m.group(1) == "panel_strip_ws_kernel":  # feed, method, TMA, serialized loop
+                parts += [("bf16", "f32")[int(ints[0])], methods[ints[1]]]
+            else:
+                parts += [methods[v] for v in ints]
             flags = re.findall(r"Lb([01])E", raw)
-            if flags:  # TMA, then (float32 tensor-core kernel) one pass
+            if flags:
                 parts.append("tma" if flags[0] == "1" else "no_tma")
-            if len(flags) > 1:
-                parts.append("1pass" if flags[1] == "1" else "3xtf32")
+            if flags[1:] == ["1"] and m.group(1) == "panel_strip_ws_kernel":
+                parts.append("serial")
             entry = f"{m.group(1)}<{','.join(parts)}>"
             spill = 0
+            continue
+        if re.search(r"Compiling entry function '\w*?bf16_rows_kernel", line):
+            entry, spill = "bf16_rows_kernel", 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and entry:
@@ -289,9 +301,17 @@ def phase_environment() -> None:
     log(f"kernel build (every csrc/*.cu, one nvcc each, in parallel): {build_s} s -> {path.name}; "
         f"spill stores (bytes) {spills}")
     log(json.dumps({"ptxas": per_kernel}))
-    spilled = [k for k, v in per_kernel.items() if k.startswith("cov_kernel") and v["spill_stores"]]
+    spilled = [k for k, v in per_kernel.items()
+               if k.startswith(("cov_kernel", "panel_strip_ws_kernel")) and v["spill_stores"]]
     if spilled:
-        fail(f"covariance-kernel instantiations spill: {spilled}")
+        fail(f"kernel instantiations spill: {spilled}")
+    # the ws kernel's setmaxnreg split (2 x 128 x 232 + 128 x 40, or 224 and
+    # 56 with plain loads) takes the 384 x 168 registers a block starts
+    # with; with fewer, setmaxnreg.inc would wait forever
+    unsplit = {k: v["registers"] for k, v in per_kernel.items()
+               if k.startswith("panel_strip_ws_kernel") and v["registers"] != 168}
+    if unsplit:
+        fail(f"warp-specialized panel-strip instantiations do not start at 168 registers: {unsplit}")
     for line in report.splitlines():  # ptxas's own warnings, e.g. a serialized wgmma
         if "warning" in line.lower() or "performance loss" in line.lower():
             log("ptxas:", line.strip())
@@ -747,7 +767,8 @@ def strip_bound_ms(rest: int, block: int, j0: int, d: int, itemsize: int,
     default ``itemsize``), the inputs and the strip moved once over HBM. The
     float32 kernel's downdate is three TF32 products: pass TF32_FLOPS / 3
     for its tensor-core bound, FP32_FLOPS for the SIMT one; the single pass
-    TF32_FLOPS, the bfloat16 prefix BF16_FLOPS."""
+    and the bfloat16 prefix BF16_FLOPS (one product of bfloat16 operands,
+    exact in float32: the least time for the same products)."""
     t_ops = (2 * rest * block * j0 / downdate_flops + (2 * d + 9) * rest * block / FP32_FLOPS) * 1e3
     pitem = itemsize if prefix_itemsize is None else prefix_itemsize
     nbytes = (rest * j0 + block * j0) * pitem + (rest * block + (rest + block) * d) * itemsize
@@ -755,10 +776,12 @@ def strip_bound_ms(rest: int, block: int, j0: int, d: int, itemsize: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_factor(kernel, x_pad, n: int, noise) -> dict:
+def profile_factor(kernel, x_pad, n: int, noise, **factor_kw) -> dict:
     """Device time by kernel over one streamed build+factor at the default
-    panel width (``torch.profiler``), against its wall-clock time: the
-    breakdown of the build, and the device's idle share."""
+    panel width (``torch.profiler``; ``factor_kw`` to
+    ``streamed_cholesky_factor``), against its wall-clock time: the
+    breakdown of the build, the device's idle share, and each panel-strip
+    launch's device milliseconds in launch order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -771,7 +794,7 @@ def profile_factor(kernel, x_pad, n: int, noise) -> dict:
     torch.cuda.synchronize()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        l_mat, ok = streamed_cholesky_factor(kernel, x_pad, n, noise)
+        l_mat, ok = streamed_cholesky_factor(kernel, x_pad, n, noise, **factor_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if not bool(ok):
@@ -789,6 +812,9 @@ def profile_factor(kernel, x_pad, n: int, noise) -> dict:
     return {
         "wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
         "panel_strip_device_s": sum(r[1] for r in b2), "panel_strip_count": sum(r[2] for r in b2),
+        "panel_strip_launch_ms": [e.time_range.elapsed_us() / 1e3 for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA and "panel_strip" in e.name
+             and "bf16_rows" not in e.name), key=lambda e: e.time_range.start)],
         "kernels": [{"name": k[:80], "s": t, "share_of_wall": t / wall, "count": c}
                     for k, t, c in kernels[:8]],
     }
@@ -2092,6 +2118,21 @@ def middle_panel_times(kernel, x_pad, n_live, noise, l_full, widths, precision, 
             "downdate_tflops": 2 * rest * block * j0 / min(times["kernel"]) / 1e9, **accuracy}
 
 
+#: Downdate errors against float64 at the middle panels of 8a and 8b that
+#: the bf16-product instantiations may not exceed: twice those of their
+#: previous design, measured by this script on an NVIDIA H100 80GB HBM3
+#: (1.2764e-06 for the bf16 prefix, 1.9955e-06 for the single pass; PERF.md).
+DOWNDATE_ERR_LIMIT = {"bf16 prefix": 2 * 1.2764e-06, "single pass": 2 * 1.9955e-06}
+
+
+def downdate_gate(row: dict, what: str) -> None:
+    """Fail if a middle panel's downdate error against float64 exceeds
+    ``DOWNDATE_ERR_LIMIT``."""
+    limit = DOWNDATE_ERR_LIMIT[what]
+    if not row["kernel_downdate_err"] <= limit:
+        fail(f"{what}: downdate error against float64 {row['kernel_downdate_err']} above {limit}")
+
+
 def bf16_library_call(k_strip, l_tail, l_rows):
     """torch's one call of the downdate on the bf16 operands: float32 out
     where this torch has ``out_dtype``, else bf16 out."""
@@ -2216,6 +2257,7 @@ def phase_bf16_storage(n: int) -> tuple[dict, tuple, dict]:
                              BF16_FLOPS)
     row["max_abs_err"] = max_err
     log(json.dumps({"panel_strip_bf16_middle_panel": row}))
+    downdate_gate(row, "bf16 prefix")
     del l_full
     torch.cuda.empty_cache()
     return {
@@ -2266,9 +2308,13 @@ def phase_bf16_vs_f32(fitted, n: int) -> dict:
             err = check_panels(st.kernel, st.x, st.n, st.noise, st.l, widths,
                                f"precision 'bf16' factor, capacity {cap}", precision="bf16")
             row = middle_panel_times(st.kernel, st.x, st.n, st.noise, st.l, widths, "bf16",
-                                     medium_library_call, TF32_FLOPS)
+                                     medium_library_call, BF16_FLOPS)
             row["max_abs_err"] = err
+            # printed, not gated: a hand-written kernel slower than the
+            # library call stays, with its numbers
+            row["ms_over_medium_addmm"] = row["ms"] / row["library_ms"]
             log(json.dumps({"panel_strip_1pass_middle_panel": row}))
+            downdate_gate(row, "single pass")
             entry = {
                 "name": "panel_strip_1pass", "route": "cuda",
                 "source": "friedrich_tpu_torch/csrc/panel_strip_1pass.cu",
@@ -2276,7 +2322,7 @@ def phase_bf16_vs_f32(fitted, n: int) -> dict:
                 "launches": launches[kind], "max_abs_err": err, "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "library_call": row["library_call"],
-                "bound": "tensor cores: one TF32 product at 495 TFLOP/s", "shape": row["shape"],
+                "bound": "tensor cores: one bf16 product at 989 TFLOP/s", "shape": row["shape"],
             }
             del st
         del gp, mean, var
@@ -2530,12 +2576,159 @@ def phase_outofcore() -> dict:
     return out
 
 
+#: 8a's fitted SquaredExp and noise (phase 8a's flow on an NVIDIA H100 80GB
+#: HBM3), to build 8a's and 8b's factors without running the flow.
+FIT_8A = {"ls": 1.1968789100646973, "ampl": 0.5815813541412354, "noise": 1.9908756017684937}
+#: Contraction lengths of the explicit-prefix sweep of ``panel_times``, on
+#: 8c's middle panel's rows (capacity 106,496 less j0 = 49,152).
+SWEEP_KDIMS, SWEEP_ROWS = (512, 1024, 2048, 4096, 8192, 16384, 32768), 57_344
+#: Capacities of ``panel_times``'s in-place middle panels beside 8a's and 8b's.
+SWEEP_CAPACITIES = (120_512, 130_512, 140_512, 160_512)
+
+
+def panel_times(errors: bool) -> dict:
+    """B2's times on the card, for comparing the ``friedrich_tpu_torch`` this
+    script imports (the one beside it) with another checkout's: copy this
+    script into the other checkout's root and run both with
+    ``--panel-times`` in turns. On prefixes of N(0, 0.01) entries (seed 0)
+    and SquaredExp(1, 1) on N(0, 1) inputs (d = 8), median CUDA-event times
+    (``cuda_ms``) of: each reduced-precision instantiation's middle panel
+    on the main path (the bf16 prefix at j0 = 75,256, B = 1,636 of capacity
+    150,512; the single pass and 3xTF32 at j0 = 50,256, B = 1,396 of
+    100,512) beside one ``torch.addmm`` of the same downdate, and 8c's
+    middle panel (an explicit bf16 prefix 8,192 wide); every panel of a bf16
+    factor at 100,512 (8b's bf16 storage: the kernel alone, panel by
+    panel), and of one at 150,512 (8a's); the middle panels of bf16 factors
+    at ``SWEEP_CAPACITIES``; the explicit bf16 prefix at ``SWEEP_KDIMS`` on ``SWEEP_ROWS``
+    rows, 1,396 and 8,192 columns; and the B2 launches of 8b's real
+    bf16-storage build (``bf16_data`` under ``FIT_8A``) under
+    ``torch.profiler``, in panel order, beside the build's other kernels.
+    With ``errors``, the middle panels' downdate errors against float64 on
+    8a's and 8b's real factors, as phase 8 logs them."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.ops.covariance import plain_train_covariance_block
+    from friedrich_tpu_torch.ops.cuda import build
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda as pc
+    from friedrich_tpu_torch.ops.panel_fused import downdate_operand
+    from friedrich_tpu_torch.ops.partition import panel_widths
+    from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
+
+    _, report = build.build()
+    out = {"package": os.path.dirname(ft.__file__), "card": smi_line(),
+           "ptxas_notes": sorted({line.strip() for line in report.splitlines()
+                                  if "performance loss" in line.lower()}),
+           "ms": {}, "panels_100512_bf16_ms": [], "panels_150512_bf16_ms": [], "explicit_sweep_ms": {}}
+    kern = ft.kernels.SquaredExp(ls=1.0, ampl=1.0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def strip(x, lmat, cap, j0, b, **kw):
+        return lambda: pc.panel_strip(kern, x[j0:], x[j0:j0 + b], lmat, cap - K_ADD, 1.0, j0, b, **kw)
+
+    for cap, j0, b, dtype, kinds in ((150_512, 75_256, 1636, torch.bfloat16, ("bf16",)),
+                                     (100_512, 50_256, 1396, torch.float32, ("one_pass", "tf32x3"))):
+        x = torch.randn((cap, D), device="cuda", generator=g)
+        lmat = torch.empty((cap, cap), dtype=dtype, device="cuda")
+        lmat[j0:, :j0].normal_(0, 0.01, generator=g)
+        k_strip = plain_train_covariance_block(kern, x[j0:], x[j0:j0 + b], cap - K_ADD, 1.0,
+                                               row0=j0, col0=j0)
+        parts = (k_strip, lmat[j0:, :j0], lmat[j0:j0 + b, :j0])
+        for kind in kinds:
+            precision = "bf16" if kind == "one_pass" else None
+            out["ms"][f"{kind}_middle_{cap}"] = cuda_ms(strip(x, lmat, cap, j0, b, precision=precision))
+            if kind == "bf16":
+                lib, _ = bf16_library_call(*parts)
+            elif kind == "one_pass":
+                lib, _ = medium_library_call(*parts)
+            else:
+                lib = (lambda: torch.addmm(parts[0], parts[1], parts[2].mT, alpha=-1))  # noqa: E731
+            out["ms"][f"{kind}_middle_{cap}_torch_addmm"] = cuda_ms(lib)
+            del lib
+        del parts, k_strip, lmat
+        torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
+    # every panel of a bf16 factor in place at 8b's and 8a's capacities
+    for cap in (100_512, 150_512):
+        x = torch.randn((cap, D), device="cuda", generator=g)
+        lmat = torch.empty((cap, cap), dtype=torch.bfloat16, device="cuda")
+        lmat.normal_(0, 0.01, generator=g)
+        starts = np.cumsum((0,) + tuple(panel_widths(cap)[:-1]))
+        for j0, b in zip(starts.tolist(), panel_widths(cap)):
+            out[f"panels_{cap}_bf16_ms"].append([j0, b, cuda_ms(strip(x, lmat, cap, j0, b), reps=3)])
+        del lmat, x
+        torch.cuda.empty_cache()
+    # the middle panel of a bf16 factor in place at other capacities
+    for cap in SWEEP_CAPACITIES:
+        widths = panel_widths(cap)
+        j0, b = int(np.sum(widths[:len(widths) // 2])), widths[len(widths) // 2]
+        x = torch.randn((cap, D), device="cuda", generator=g)
+        lmat = torch.empty((cap, cap), dtype=torch.bfloat16, device="cuda")
+        lmat[j0:, :j0].normal_(0, 0.01, generator=g)
+        out["ms"][f"bf16_middle_{cap}_j0_{j0}_B_{b}"] = cuda_ms(strip(x, lmat, cap, j0, b))
+        del lmat, x
+        torch.cuda.empty_cache()
+    # explicit bfloat16 prefixes: 8c's middle panel, then the sweep
+    cap, block = 106_496, OOC_BLOCK
+    j0 = cap - SWEEP_ROWS
+    x = torch.randn((cap, D), device="cuda", generator=g)
+    for width, cols in [(block, block)] + [(k, c) for c in (1396, block) for k in SWEEP_KDIMS]:
+        prefix = (torch.randn((SWEEP_ROWS, width), device="cuda", generator=g) * 0.01).to(torch.bfloat16)
+        ms = cuda_ms(strip(x, None, cap, j0, cols, prefix=prefix))
+        out["explicit_sweep_ms"][f"rows{SWEEP_ROWS}_cols{cols}_k{width}"] = ms
+        del prefix
+    del x
+    torch.cuda.empty_cache()
+    # 8b's bf16-storage build, kernel by kernel
+    cap = 100_000 + K_ADD
+    fit = ft.kernels.SquaredExp(ls=FIT_8A["ls"], ampl=FIT_8A["ampl"]).to(torch.float32, "cuda")
+    x_pad = torch.zeros((cap, D), device="cuda")
+    x_pad[:100_000] = torch.as_tensor(bf16_data(100_000)[0], device="cuda")
+    out["build_8b_bf16"] = profile_factor(fit, x_pad, 100_000, FIT_8A["noise"], storage="bf16")
+    del x_pad
+    torch.cuda.empty_cache()
+    log(json.dumps(out))
+    if not errors:
+        return out
+    # the middle panels' downdate errors against float64 on 8a's and 8b's factors
+    x_np = bf16_data(BF16_N)[0]
+    for cap, n, kw in ((BF16_N + K_ADD, BF16_N, {"storage": "bf16"}),
+                       (100_000 + K_ADD, 100_000, {"precision": "bf16"})):
+        x_pad = torch.zeros((cap, D), device="cuda")
+        x_pad[:n] = torch.as_tensor(x_np[:n], device="cuda")
+        l_full, ok = streamed_cholesky_factor(fit, x_pad, n, FIT_8A["noise"], **kw)
+        if not bool(ok):
+            fail(f"--panel-times: the factor at {cap} failed")
+        widths = panel_widths(cap)
+        p = len(widths) // 2
+        j0, b = int(np.sum(widths[:p])), widths[p]
+        precision = kw.get("precision")
+        k_strip = plain_train_covariance_block(fit, x_pad[j0:], x_pad[j0:j0 + b], n, FIT_8A["noise"],
+                                               row0=j0, col0=j0).double()
+        op = (lambda t: downdate_operand(t, torch.float32, precision))  # noqa: E731
+        ref = chunked_product(l_full[j0:, :j0], l_full[j0:j0 + b, :j0], torch.float64, operand=op)
+        got = pc.panel_strip(fit, x_pad[j0:], x_pad[j0:j0 + b], l_full, n, FIT_8A["noise"], j0, b,
+                             precision=precision)
+        kind = pc.variant(torch.float32, l_full.dtype, precision)
+        out[f"downdate_err_{kind}_{cap}"] = float((k_strip - got.double() - ref).abs().max())
+        out[f"max_abs_downdate_{kind}_{cap}"] = float(ref.abs().max())
+        del l_full, ref, k_strip, got, x_pad
+        torch.cuda.empty_cache()
+    log(json.dumps({k: v for k, v in out.items() if k.startswith(("downdate_err", "max_abs_downdate"))}))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--n", type=int, default=50_000,
                         help="training points of the dense full-width phase (default 50,000)")
     parser.add_argument("--streamed-n", type=int, default=100_000,
                         help="training points of the streamed full-width phase and of 8b (default 100,000)")
+    parser.add_argument("--panel-times", action="store_true",
+                        help="only time B2 at the main path's panels (panel_times) and exit")
+    parser.add_argument("--errors", action="store_true",
+                        help="with --panel-times, also the downdate errors against float64")
     args = parser.parse_args()
 
     import torch
@@ -2545,6 +2738,9 @@ def main() -> int:
         return 2
     import friedrich_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    if args.panel_times:
+        panel_times(args.errors)
+        return 0
     phase_environment()
     phase_kernel_vs_plain()
     phase_parity()

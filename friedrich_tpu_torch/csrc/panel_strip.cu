@@ -18,8 +18,8 @@ int friedrich_panel_strip_f32(const float* x1, const float* x2,
                               long long row0, long long col0, long long n,
                               double noise, int method, int needs,
                               CovProgram prog, void* stream) {
-  return launch_tc<MODE_3XTF32>(x1, x2, la, lb, out, m1, m2, d, ldl, kdim, row0, col0, n,
-                                noise, method, needs, prog, static_cast<cudaStream_t>(stream));
+  return launch_tf32x3(x1, x2, la, lb, out, m1, m2, d, ldl, kdim, row0, col0, n, noise, method,
+                       needs, prog, static_cast<cudaStream_t>(stream));
 }
 
 int friedrich_panel_strip_f64(const double* x1, const double* x2,

@@ -1,5 +1,6 @@
 // C entry point of the panel-strip kernel (panel_strip.cuh) with a bfloat16
-// prefix and float32 inputs and strip: the factor storage "bf16".
+// prefix and float32 inputs and strip: the factor storage "bf16", multiplied
+// by the warp-specialized bf16 wgmma kernel (FEED_BF16).
 
 #include "panel_strip.cuh"
 
@@ -13,7 +14,7 @@ int friedrich_panel_strip_bf16(const float* x1, const float* x2,
                                long long row0, long long col0, long long n,
                                double noise, int method, int needs,
                                CovProgram prog, void* stream) {
-  return launch_tc<MODE_BF16>(x1, x2, la, lb, out, m1, m2, d, ldl, kdim, row0, col0, n,
+  return launch_ws<FEED_BF16>(x1, x2, la, lb, nullptr, out, m1, m2, d, ldl, kdim, row0, col0, n,
                               noise, method, needs, prog, static_cast<cudaStream_t>(stream));
 }
 

@@ -246,14 +246,18 @@ def library():
                 ctypes.c_int, ctypes.c_int, LeafConstants, Program, ptr,
             ]
             fn.restype = ctypes.c_int
-        for fn in (lib.friedrich_panel_strip_f32, lib.friedrich_panel_strip_f32_1pass,
-                   lib.friedrich_panel_strip_bf16, lib.friedrich_panel_strip_f64):
-            fn.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ll, ctypes.c_int, ll, ll, ll, ctypes.c_double,
-                ctypes.c_int, ctypes.c_int, Program, ptr,
-            ]
+        strip_args = [
+            ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ll, ctypes.c_int, ll, ll, ll, ctypes.c_double,
+            ctypes.c_int, ctypes.c_int, Program, ptr,
+        ]
+        for fn in (lib.friedrich_panel_strip_f32, lib.friedrich_panel_strip_bf16,
+                   lib.friedrich_panel_strip_f64):
+            fn.argtypes = strip_args
             fn.restype = ctypes.c_int
+        # the single pass takes a scratch buffer for its bfloat16 B rows
+        lib.friedrich_panel_strip_f32_1pass.argtypes = [*strip_args[:4], ptr, *strip_args[4:]]
+        lib.friedrich_panel_strip_f32_1pass.restype = ctypes.c_int
         lib.friedrich_host_register.argtypes = [ptr, ctypes.c_size_t]
         lib.friedrich_host_unregister.argtypes = [ptr]
         lib.friedrich_host_is_locked.argtypes = [ptr]

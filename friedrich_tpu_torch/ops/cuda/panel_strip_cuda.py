@@ -9,17 +9,29 @@ One launch writes the (cap - j0, B) pre-factor strip of the streamed
 Cholesky's panel at column offset ``j0``: the padded training covariance
 ``K(X[j0:], X[j0:j0+B])`` minus the downdate ``P @ P[:B].T`` of the prefix
 ``P = L[j0:, :j0]``, each element written once. The downdate dominates,
-about cap^3 / 3 operations over a factorization. Its instantiations:
+about cap^3 / 3 operations over a factorization, so the kernels are bound
+by the tensor cores' rate and by how fast their operands reach them. Its
+instantiations:
 
 - ``"tf32x3"``: a float32 prefix, three TF32 products of split operands on
   the tensor cores (``wgmma`` fed by TMA, or by ``cp.async`` where the row
   stride is not a multiple of 4);
 - ``"one_pass"``: a float32 prefix under the factor precision ``"bf16"``:
-  both operands rounded to bfloat16, one TF32 product;
+  both operands rounded to bfloat16, one bf16 product;
 - ``"bf16"``: a bfloat16 prefix (the factor storage ``"bf16"``), one bf16
-  product, float32 accumulation and strip (TMA where the row stride is a
-  multiple of 8, plain loads otherwise);
+  product;
 - ``"f64"``: float64 on the CUDA cores.
+
+``"one_pass"`` and ``"bf16"`` share one kernel (``panel_strip_ws_kernel``):
+a producer warpgroup keeps TMA loads in flight on a ring of stages with a
+full and an empty barrier per slot (plain loads where TMA cannot take the
+row stride), and two consumer warpgroups run bf16 ``wgmma`` with one group
+in flight and promote their tensor-core sums into float32 registers every
+512 products. What bounds it is the L2 traffic of its 128 x 128 tiles
+(PERF.md). The single pass converts its float32 A fragments in registers
+and rounds the panel's own rows to bfloat16 once per launch into a scratch
+buffer this wrapper allocates (B x j0 bfloat16). Each product is exact in
+float32 and the sums are float32.
 
 The prefix is read in place from the factor (``l_full``, row stride cap) or
 given explicitly (``prefix``, a contiguous (cap - j0, C) tensor whose first B
@@ -128,10 +140,15 @@ def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
     prog, needs = program(kernel)
     fn = getattr(library(), _ENTRY[kind])
     stream = torch.cuda.current_stream(x_tail.device).cuda_stream
+    pointers = [x_tail.data_ptr(), xj.data_ptr(), rows.data_ptr(), rows.data_ptr()]
+    if kind == "one_pass":
+        # the panel's own rows rounded to bfloat16, rows 16-byte aligned
+        scratch = torch.empty((block, -(-kdim // 8) * 8) if kdim else (0,), dtype=torch.bfloat16,
+                              device=x_tail.device)
+        pointers.append(scratch.data_ptr() if kdim else None)
     err = fn(
-        x_tail.data_ptr(), xj.data_ptr(), rows.data_ptr(), rows.data_ptr(), out.data_ptr(),
-        rest, block, x_tail.shape[1], ldl, kdim, j0, j0, int(n), float(noise),
-        METHODS[method], needs, prog, stream,
+        *pointers, out.data_ptr(), rest, block, x_tail.shape[1], ldl, kdim, j0, j0, int(n),
+        float(noise), METHODS[method], needs, prog, stream,
     )
     check_launch(err, "panel-strip kernel")
     LAUNCHES += 1

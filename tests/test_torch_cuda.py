@@ -196,6 +196,115 @@ def test_panel_strip_explicit_prefix_matches_plain_version(card, kind, width):
     assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs() + bound).all())
 
 
+# The warp-specialized bf16-product kernel's geometry, against the plain
+# version with the tolerance above: capacity 2,816 takes TMA, 2,817
+# (bfloat16 and float32 rows not 16-byte aligned) the plain loads; panels
+# whose row-tile count is odd, j0 one below, at and one above 512 (a
+# promotion boundary of either consumer warpgroup: every 512 products,
+# the second's offset by 256) and 1,024, several laps of the stage ring
+# deep (2,430: 38 stages of 64), and widths that are not a multiple of the
+# tile's 128 columns. NaN right of j0 must never be read.
+@pytest.mark.parametrize("cap", (2816, 2817))
+@pytest.mark.parametrize("kind", ("bf16", "one_pass"))
+def test_panel_strip_bf16_products_geometry(card, kind, cap):
+    rng = np.random.default_rng(84)
+    n = 2750
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), dtype=torch.float32, device=card)
+    l_np = np.tril(rng.normal(size=(cap, cap)) * 0.1)
+    ldtype, precision = (torch.bfloat16, None) if kind == "bf16" else (torch.float32, "bf16")
+    kern = KERNELS["Composite"].to(torch.float32, card)
+    panels = ((511, 300), (512, 300), (513, 300), (1023, 384), (1024, 200), (1025, 250),
+              (2430, cap - 2430))
+    for j0, block in panels:
+        l_full = torch.as_tensor(l_np, dtype=ldtype, device=card)
+        l_full[:, j0:] = float("nan")
+        before = dict(pc.LAUNCHES_BY_VARIANT)
+        got = panel_fused.panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, 0.3, j0, block,
+                                      precision=precision)
+        assert pc.LAUNCHES_BY_VARIANT[kind] == before[kind] + 1
+        want = panel_fused.plain_panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, 0.3, j0,
+                                             block, precision=precision)
+        p = panel_fused.downdate_operand(l_full[j0:, :j0], torch.float32, precision)
+        bound = _strip_bound(p, block, j0, 2.0**-24)
+        assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs() + bound).all()), (j0, block)
+
+
+# The serialized consumer loop, which the kernel takes for a bfloat16
+# factor read in place at a row stride of 125,000 or more: capacity
+# 125,008, a contraction of 124,500 (1,946 stages, both warpgroups'
+# staggered promotions), a row-tile count that is odd and a width that is
+# not a multiple of 128. Only the strip's rows are written (31 GB reserved).
+def test_panel_strip_bf16_serialized_loop_at_large_row_stride(card):
+    rng = np.random.default_rng(87)
+    cap, n, j0, block = 125_008, 124_900, 124_500, 200
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), dtype=torch.float32, device=card)
+    l_full = torch.empty((cap, cap), dtype=torch.bfloat16, device=card)
+    l_full[j0:, :j0] = torch.as_tensor(rng.normal(size=(cap - j0, j0)) * 0.01, device=card)
+    l_full[j0:, j0:] = float("nan")
+    kern = KERNELS["SquaredExp"].to(torch.float32, card)
+    before = pc.LAUNCHES_BY_VARIANT["bf16"]
+    got = panel_fused.panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, 0.3, j0, block)
+    assert pc.LAUNCHES_BY_VARIANT["bf16"] == before + 1
+    want = panel_fused.plain_panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, 0.3, j0, block)
+    p = panel_fused.downdate_operand(l_full[j0:, :j0], torch.float32, None)
+    bound = _strip_bound(p, block, j0, 2.0**-24)
+    ok = bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs() + bound).all())
+    del l_full
+    torch.cuda.empty_cache()
+    assert ok
+
+
+# The explicit prefix at the widths of the out-of-core factorization's
+# chunks: 8 (the narrowest a bfloat16 TMA row takes) and 8,192 (8c's panels).
+@pytest.mark.parametrize("width", (8, 8192))
+@pytest.mark.parametrize("kind", ("tf32x3", "bf16", "one_pass"))
+def test_panel_strip_explicit_prefix_at_chunk_widths(card, kind, width):
+    rng = np.random.default_rng(85)
+    cap, n, j0, block = 1000, 950, 416, 320
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), dtype=torch.float32, device=card)
+    ldtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    precision = "bf16" if kind == "one_pass" else None
+    prefix = torch.as_tensor(rng.normal(size=(cap - j0, width)) * 0.1, dtype=ldtype, device=card)
+    kern = KERNELS["SquaredExp"].to(torch.float32, card)
+    before = pc.LAUNCHES_BY_VARIANT[kind]
+    got = panel_fused.panel_strip(kern, x[j0:], x[j0:j0 + block], None, n, 0.3, j0, block,
+                                  precision=precision, prefix=prefix)
+    assert pc.LAUNCHES_BY_VARIANT[kind] == before + 1
+    want = panel_fused.plain_panel_strip(kern, x[j0:], x[j0:j0 + block], None, n, 0.3, j0, block,
+                                         precision=precision, prefix=prefix)
+    p = panel_fused.downdate_operand(prefix, torch.float32, precision)
+    split = pc.SPLIT_ERROR if kind == "tf32x3" else 0.0
+    bound = (width * 2.0**-24 + split) * (p.abs() @ p[:block].abs().mT)
+    assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs() + bound).all())
+
+
+# The downdate of a real factor's middle panel against float64 products of
+# the same bfloat16 operands, for both bf16-product instantiations: within
+# sqrt(j0) u max(|P| |P[:B]|^T), the size of float32 sums whose errors do
+# not pile up; an accumulation that drifts with the contraction's length
+# (a tensor-core accumulator promoted too rarely) exceeds it.
+@pytest.mark.parametrize("storage,precision", (("bf16", None), (None, "bf16")))
+def test_panel_strip_downdate_error_against_float64(card, storage, precision):
+    rng = np.random.default_rng(86)
+    cap, n = 8192, 8000
+    x = torch.zeros((cap, 8), dtype=torch.float32, device=card)
+    x[:n] = torch.as_tensor(rng.normal(size=(n, 8)), dtype=torch.float32, device=card)
+    kern = tk.SquaredExp(ls=1.2, ampl=0.6).to(torch.float32, card)
+    l_full, ok = streamed_cholesky_factor(kern, x, n, 2.0, block=1024, storage=storage,
+                                          precision=precision)
+    assert bool(ok)
+    j0, block = 4096, 1024
+    got = panel_fused.panel_strip(kern, x[j0:], x[j0:j0 + block], l_full, n, 2.0, j0, block,
+                                  precision=precision)
+    k_strip = cov.plain_train_covariance_block(kern, x[j0:], x[j0:j0 + block], n, 2.0, row0=j0,
+                                               col0=j0)
+    p = panel_fused.downdate_operand(l_full[j0:, :j0], torch.float32, precision).double()
+    err = float((k_strip.double() - got.double() - p @ p[:block].mT).abs().max())
+    scale = float((p.abs() @ p[:block].abs().mT).max())
+    print(f"downdate error {err}, {err / (scale * 2.0**-24)} u max(|P| |P|^T)")
+    assert err <= j0**0.5 * 2.0**-24 * scale
+
+
 @pytest.mark.parametrize("storage,precision,kind", (("bf16", None, "bf16"), (None, "bf16", "one_pass")))
 def test_streamed_factor_runs_only_its_instantiation(card, storage, precision, kind):
     rng = np.random.default_rng(77)
