@@ -121,10 +121,44 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    iteration. Each host factor's first, middle and last panels hold B2's
    explicit-prefix entry against its plain version.
 
+9. the tiled and hybrid backends at full width and serving: on ``bench.py``'s
+   data at n=100,000 (capacity 100,512) with 6a's fitted hyperparameters
+   (no fit), first the streamed model's 4,096 predictions as the reference;
+   (9a) a ``backend="tiled"`` model through the builder and its 4,096
+   predictions under ``torch.profiler`` (device time by named scope and by
+   kernel, idle share), both kernels' launches counted (B1 only), the
+   means, in one solve and at the server's solve width, no further from the
+   model's float64 solution (iterative refinement with the float32 factor,
+   float64 residuals from B1's float64 instantiation) than the streamed
+   model's means + 1e-3, the variances within 1e-3 of the streamed model's
+   and >= -1e-4, and the peak below 1.15 factors; (9c) ``AcceleratedGPServer`` over that
+   model: 4 ``GPClient`` threads of 8 requests each (1-1,024 rows, mean
+   and variance or mean only), each reply within 1e-5 of the model's
+   in-process prediction of its rows at the server's solve width
+   (``predict_mean_variance(rows, block=256)``; its distance from the
+   one-solve prediction printed), a dimension mismatch answered with
+   status 1 on a connection that stays usable, no status 2, latencies and
+   the dispatcher's batches printed; then B1 at 9a's 100,512^2 launch, timed
+   beside its bound and held against its plain version on 4,096-row strips;
+   (9b) the same as 9a with ``backend="hybrid"`` (levels 1), whose leading
+   region launches B2 (3xTF32 only), held against its plain version on
+   three panels of that region (rows ending at h = 50,256), and B1 on the
+   first S22 strip; the downdates of L21's last strip and S22's first, as
+   one product and panel by panel, against float64; (9e) a float64 dense
+   model of the first 50,000 points (capacity 50,512) as the witness of the
+   float32 streamed, tiled and hybrid models of the same points, the tiled
+   and hybrid models' means and variances no further from it than the
+   streamed model's + 1e-3; (9d) the native daemon (``GPServer``, CPU float64) on a
+   bundle the port exported from a model of the first 8,192 points, asked
+   256 rows over 8 connections, within 5e-4 of the card's predictions; last,
+   B2's explicit bf16 prefix at 8c's middle panel and its float64
+   instantiation at a 4,096 density factor's middle panel, each against its
+   plain version, its bound and ``torch.addmm``.
+
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 JSON line describing each kernel, and ``{"ok": true, "device": ...}``.
 ``--n`` and ``--streamed-n`` shrink the full-width phases (4 and 5b; 5c,
-5d, 6a, 6b and 8b) for a quick check.
+5d, 6a, 6b, 8b and 9) for a quick check.
 """
 
 from __future__ import annotations
@@ -701,7 +735,7 @@ def plain_strip_chunked(kernel, x_tail, xj, l_full, n_live: int, noise, j0: int,
 
     strip = plain_train_covariance_block(kernel, x_tail, xj, n_live, noise, row0=j0, col0=j0)
     if j0 > 0:
-        p = l_full[j0:, :j0]
+        p = l_full[j0:j0 + x_tail.shape[0], :j0]
         strip -= chunked_product(p, p[:block], torch.float32,
                                  operand=lambda t: downdate_operand(t, torch.float32, precision))
     return strip
@@ -723,12 +757,13 @@ def strip_excess(got, want, prefix, block: int, atol: float, rtol: float, unit: 
 
 
 def check_panels(kernel, x_pad, n_live: int, noise, l_full, widths, where: str,
-                 precision=None) -> float:
+                 precision=None, end=None) -> float:
     """B2 against its plain version on the first, middle and last panels
     of the factor ``l_full`` (panel widths ``widths``; float32, or bfloat16
     for the bf16-prefix instantiation; ``precision="bf16"`` for the single
     pass), each within :func:`strip_excess`'s tolerance; returns the
-    largest error."""
+    largest error. ``end``: the strips' rows end there (the hybrid
+    factorization's leading region, whose panels ``widths`` cover)."""
     import torch
 
     from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
@@ -740,14 +775,14 @@ def check_panels(kernel, x_pad, n_live: int, noise, l_full, widths, where: str,
     max_err = 0.0
     for p in (0, len(widths) // 2, len(widths) - 1):
         j0, block = int(starts[p]), widths[p]
-        args = (kernel, x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
-        got = panel_strip_cuda.panel_strip(*args, precision=precision)
+        args = (kernel, x_pad[j0:end], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
+        got = panel_strip_cuda.panel_strip(*args, precision=precision, end=end)
         if kind == "tf32x3":
-            want = plain_panel_strip(*args)
+            want = plain_panel_strip(*args, end=end)
         else:
             want = plain_strip_chunked(*args, precision=precision)
         err = float((got - want).abs().max())
-        over = strip_excess(got, want, l_full[j0:, :j0], block, ATOL_F32, RTOL_F32,
+        over = strip_excess(got, want, l_full[j0:end, :j0], block, ATOL_F32, RTOL_F32,
                             UNIT_ROUNDOFF["float32"], split)
         log(f"{where}, panel {p} [{j0}, {j0 + block}): max error {err}, excess over its tolerance {over}")
         max_err = max(max_err, err)
@@ -2719,6 +2754,635 @@ def panel_times(errors: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the tiled and hybrid backends at n = 100,000, and serving
+# ---------------------------------------------------------------------------
+
+#: Peak device memory of a tiled or hybrid build at full width, in factors
+#: (a float32 factor at capacity 100,512 is 40.4 GB): K becomes L in place.
+PEAK_FACTORS_9 = 1.15
+#: 9c: client threads, requests each, the most rows a request has.
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_ROWS = 4, 8, 1024
+#: 9c: the server's solve width (``AcceleratedGPServer``'s default).
+SERVE_BLOCK = 256
+#: 9c: each reply against the in-process prediction of its rows at the
+#: server's solve width (tests/test_serving.py:134-135); 9d: the daemon's float64 against the
+#: card's float32 (tests/test_serving.py:54-55).
+SERVE_ATOL, DAEMON_ATOL = 1e-5, 5e-4
+#: 9d: the daemon's model (the first 8,192 points, a 537 MB bundle), its
+#: queries, and the connections they are sent on at once: the daemon runs a
+#: thread per connection, and one request's two triangular solves (2 x
+#: 8,192^2 x rows operations) run on one core.
+DAEMON_N, DAEMON_QUERIES, DAEMON_CONNECTIONS = 8192, 256, 8
+#: The float64 mean witness of 9a and 9b: rows of K in float64 per strip
+#: (3.2 GB at capacity 100,512), refinement steps at most, and the largest
+#: change of the mean in its last step that counts as converged.
+WITNESS_STRIP, WITNESS_STEPS, WITNESS_CHANGE = 4096, 10, 1e-6
+#: 9e: points of the float64 dense witness (a float64 factor at 50,512 is 20.4 GB).
+WITNESS_N = 50_000
+#: Prefixes of the named scopes (``utils/profiling.scope``) phase 9 splits the device time by.
+SCOPE_PREFIXES = ("gp/", "tiled/", "hybrid/", "fit/", "serving/")
+#: Published float64 tensor-core rate of an H100 SXM (NVIDIA data sheet).
+FP64_FLOPS = 67e12
+
+
+def profiled(fn):
+    """``fn()`` under a ``torch.profiler`` trace (``utils/profiling``'s
+    ``start_trace`` and ``stop_trace``, written to a temporary directory):
+    its result and its wall-clock seconds, the device time of each named
+    scope (``device_s``: its range on the device's timeline) and of each
+    kernel, and the device's idle share."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from friedrich_tpu_torch.utils import profiling
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        profiling.start_trace(tmp)  # the tracer's own start-up, outside the timed run
+        torch.zeros(1, device="cuda").add_(1.0)
+        profiling.stop_trace()
+        profiling.start_trace(tmp)
+        t0 = sync()
+        out = fn()
+        wall = sync() - t0
+        prof = profiling.stop_trace()
+        trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    scopes: dict = {}
+    kernels = []
+    for e in prof.key_averages():
+        if e.key.startswith(SCOPE_PREFIXES):
+            # the range on the device's timeline (the host-side range's
+            # device total counts a kernel once per enclosing operator)
+            if e.device_type == DeviceType.CUDA:
+                scopes[e.key] = {"device_s": e.self_device_time_total / 1e6, "count": e.count}
+        elif e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            kernels.append((e.key, e.self_device_time_total / 1e6, e.count))
+    kernels.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in kernels)
+    breakdown = {"wall_s": wall, "trace_bytes": trace_bytes, "scopes": scopes,
+                 "kernels": [{"name": k[:80], "s": t, "share_of_wall": t / wall, "count": c}
+                             for k, t, c in kernels[:10]]}
+    if busy > 0:
+        breakdown.update(device_busy_s=busy, idle_share=1.0 - busy / wall)
+    else:
+        breakdown["device_time"] = "not measured (the profiler recorded no device time)"
+    return out, breakdown
+
+
+def phase9_build(backend: str, fitted, x, y, cap: int, dtype: str = "float32"):
+    """The builder at 6a's fitted hyperparameters on ``backend``: one build
+    and factor, no fit."""
+    import friedrich_tpu_torch as ft
+
+    prior, kernel, noise = fitted
+    return (ft.GaussianProcessBuilder(x, y, device="cuda").set_dtype(dtype).set_capacity(cap)
+            .set_kernel(kernel).set_prior(prior).set_noise(float(noise)).set_backend(backend).train())
+
+
+def phase9_reference(fitted, n: int) -> tuple:
+    """The streamed model's predictions at 9's 4,096 queries and 6a's fitted
+    hyperparameters, in one solve and, third, the means at the server's
+    solve width: what the tiled and hybrid models are held to."""
+    import torch
+
+    x, y, xq = bench_data(n)[:3]
+    log(f"== phase 9: the streamed model at capacity {n + K_ADD} (the tiled and hybrid models' reference)")
+    t0 = sync()
+    gp = phase9_build("streamed", fitted, x, y, n + K_ADD)
+    build_s = sync() - t0
+    mean, var = gp.predict_mean_variance(xq)
+    mean_block = gp.predict_mean_variance(xq, block=SERVE_BLOCK)[0]
+    del gp
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase_9_streamed_reference": {"build_s": build_s}}))
+    return mean, var, mean_block
+
+
+def float64_mean_witness(state, y, n: int, xq) -> tuple[np.ndarray, dict]:
+    """The posterior mean at ``xq`` of the model ``state`` holds, solved in
+    float64: ``K alpha = y - prior(x)`` by iterative refinement, each
+    correction solved with the model's own float32 factor and each residual
+    computed in float64 by the covariance kernel's float64 instantiation in
+    row strips of K (K in float64 does not fit the card at capacity
+    100,512: 80.8 GB). Returns the mean and, for each step, the relative
+    residual and the largest change of the mean."""
+    import torch
+
+    from friedrich_tpu_torch.ops.cholesky import cho_solve
+    from friedrich_tpu_torch.ops.covariance import covariance_tile, cross_covariance_train_padded
+
+    cap, dev = state.capacity, state.x.device
+    kern = state.kernel.to(torch.float64, "cpu")
+    x, noise = state.x.double(), float(state.noise)
+    y64 = torch.zeros(cap, dtype=torch.float64, device=dev)
+    y64[:n] = torch.as_tensor(y[:n], dtype=torch.float64, device=dev)
+    r = torch.where(torch.arange(cap, device=dev) < n, y64 - state.prior.mean(x), 0.0)
+
+    def residual(alpha):
+        out = r.clone()
+        for r0 in range(0, cap, WITNESS_STRIP):
+            strip = covariance_tile(kern, x[r0:r0 + WITNESS_STRIP], x, n, noise, train=True,
+                                    method=state.method, row0=r0)
+            out[r0:r0 + WITNESS_STRIP] -= strip @ alpha
+            del strip
+        return out
+
+    xq64 = torch.as_tensor(xq, dtype=torch.float64, device=dev)
+    cross = cross_covariance_train_padded(kern, x, n, xq64, method=state.method)
+    prior_q = state.prior.mean(xq64)
+    alpha = cho_solve(state.l, r.float()).double()
+    mean = prior_q + cross.mT @ alpha
+    history = {"relative_residual": [], "mean_change": []}
+    for _ in range(WITNESS_STEPS):
+        res = residual(alpha)
+        history["relative_residual"].append(float(res.norm() / r.norm()))
+        alpha += cho_solve(state.l, res.float()).double()
+        new = prior_q + cross.mT @ alpha
+        history["mean_change"].append(float((new - mean).abs().max()))
+        mean = new
+        if history["mean_change"][-1] < 1e-12:
+            break
+    del cross, alpha, r
+    torch.cuda.empty_cache()
+    return mean.cpu().numpy(), history
+
+
+def phase_tiled_hybrid(backend: str, fitted, n: int, ref, witness=None) -> tuple[dict, object]:
+    """9a (``"tiled"``) and 9b (``"hybrid"``, levels 1): build and factor
+    at capacity n + 512 through the builder, then 4,096 predictions, under
+    ``torch.profiler``, with both kernels' launches counted over that run;
+    gated against the float64 mean of the same model (:func:`float64_mean_witness`
+    with 9a's factor; ``witness``: 9a's, passed to 9b), the streamed
+    model's variances and the peak. 9b then
+    holds B2 against its plain version on three panels of the leading
+    region (rows ending at h) and B1 on the first S22 strip."""
+    import torch
+
+    from friedrich_tpu_torch.ops.covariance import plain_train_covariance_block
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda
+    from friedrich_tpu_torch.ops.partition import pick_block
+
+    label = {"tiled": "9a", "hybrid": "9b"}[backend]
+    cap = n + K_ADD
+    log(f"== phase {label}: backend={backend!r}, n={n}, capacity {cap}, float32, 6a's fitted "
+        f"hyperparameters; 4,096 predictions")
+    x, y, xq = bench_data(n)[:3]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def main_path():
+        t0 = sync()
+        gp = phase9_build(backend, fitted, x, y, cap)
+        build_s = sync() - t0
+        t0 = sync()
+        mean, var = gp.predict_mean_variance(xq)
+        return gp, mean, var, build_s, sync() - t0
+
+    # ---- the main path; both kernels' launches are counted over this run only
+    reset_launches()
+    (gp, mean, var, build_s, predict_s), profile = profiled(main_path)
+    b1, b1_by_shape, b2 = read_launches()
+    by_variant = variant_launches()
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    factor_bytes = cap * cap * 4
+    ref_mean, ref_var, ref_mean_block = ref
+    if witness is None:
+        t0 = sync()
+        w_mean, history = float64_mean_witness(gp.state, y, n, xq)
+        witness = {"mean": w_mean, "history": history, "seconds": sync() - t0,
+                   "streamed_mean_err": float(np.abs(ref_mean - w_mean).max()),
+                   "streamed_block_mean_err": float(np.abs(ref_mean_block - w_mean).max())}
+        log(json.dumps({"phase_9_float64_mean_witness": {k: v for k, v in witness.items() if k != "mean"}}))
+        if not witness["history"]["mean_change"][-1] < WITNESS_CHANGE:
+            fail(f"phase {label}: the float64 witness did not converge: {history}")
+    mean_block = gp.predict_mean_variance(xq, block=SERVE_BLOCK)[0]
+    steps = {
+        "witness": witness, "mean_max_abs_err_vs_float64": float(np.abs(mean - witness["mean"]).max()),
+        "streamed_mean_max_abs_err_vs_float64": witness["streamed_mean_err"],
+        "block_mean_max_abs_err_vs_float64": float(np.abs(mean_block - witness["mean"]).max()),
+        "streamed_block_mean_max_abs_err_vs_float64": witness["streamed_block_mean_err"],
+        "backend": gp.state.backend, "capacity": cap, "build_s": build_s, "predict_4096_s": predict_s,
+        "profile": profile, "covariance_tile_launches": b1,
+        "covariance_tile_launches_by_shape": {f"{k[0]}x{k[1]}{' train' if k[2] else ''}": v
+                                              for k, v in b1_by_shape.items()},
+        "panel_strip_launches": b2, "panel_strip_launches_by_variant": by_variant,
+        "b1_by_shape": b1_by_shape,
+        "peak_bytes": peak, "peak_factors": peak / factor_bytes,
+        "mean_max_abs_diff_vs_streamed": float(np.abs(mean - ref_mean).max()),
+        "var_max_abs_diff_vs_streamed": float(np.abs(var - ref_var).max()),
+        "var_min": float(var.min()),
+    }
+    log(json.dumps({f"phase_{label}": {k: v for k, v in steps.items() if k not in ("b1_by_shape", "witness")}}))
+    if gp.state.backend != backend:
+        fail(f"phase {label}: the model's backend is {gp.state.backend!r}")
+    if mean.shape != (M_QUERIES,) or not (np.isfinite(mean).all() and np.isfinite(var).all()):
+        fail(f"phase {label}: predictions of shape {mean.shape} or not finite")
+    if steps["var_min"] < -1e-4:
+        fail(f"phase {label}: negative predictive variance {steps['var_min']}")
+    for kind in ("", "block_"):
+        err, streamed_err = steps[f"{kind}mean_max_abs_err_vs_float64"], steps[
+            f"streamed_{kind}mean_max_abs_err_vs_float64"]
+        if not err <= streamed_err + 1e-3:
+            fail(f"phase {label}: the {kind or 'one-solve '}mean is {err} from the float64 witness, the streamed "
+                 f"model's {streamed_err} (limit: the streamed model's + 1e-3)")
+    if not steps["var_max_abs_diff_vs_streamed"] <= 1e-3:
+        fail(f"phase {label}: variances differ from the streamed model's by "
+             f"{steps['var_max_abs_diff_vs_streamed']} (limit 1e-3)")
+    if not peak < PEAK_FACTORS_9 * factor_bytes:
+        fail(f"phase {label}: peak device memory {peak} B is not below {PEAK_FACTORS_9} factors")
+    if b1 <= 0:
+        fail(f"phase {label}: the covariance kernel did not launch")
+    if backend == "tiled":
+        if b2 != 0:
+            fail(f"phase 9a: the tiled build launched the panel-strip kernel {b2} times")
+        return steps, gp
+    b = pick_block(cap // 2, 2048)
+    h = cap // 2
+    if b2 <= 0:
+        fail("phase 9b: the hybrid build did not launch the panel-strip kernel")
+    only_variant(by_variant, "tf32x3", b2, "phase 9b, the hybrid leaf")
+    state = gp.state
+    steps["leaf_panel_max_abs_err"] = check_panels(state.kernel, state.x, n, state.noise, state.l,
+                                                   (b,) * (h // b), "phase 9b leaf", end=h)
+    # B1 on the first S22 strip: train mode shifted to the strip's diagonal
+    xs, xc = state.x[h:], state.x[h:h + b]
+    got = covariance_cuda.covariance(state.kernel, xs, xc, max(n - h, 0), state.noise, train=True)
+    want = plain_train_covariance_block(state.kernel, xs, xc, n, state.noise, row0=h, col0=h)
+    err, over = float((got - want).abs().max()), excess(got, want, ATOL_F32, RTOL_F32)
+    del got, want
+    log(f"phase 9b, first S22 strip {cap - h} x {b}: max error {err}, excess over its tolerance {over}")
+    if not over <= 0:
+        fail(f"phase 9b: the covariance kernel differs from its plain version on the S22 strip: {err}")
+    s22 = shape_time(f"train S22 strip {cap - h} x {b} (9b)", state.kernel, xs, xc, max(n - h, 0), True,
+                     state.noise, b1_by_shape)
+    s22["plain_ms"] = cuda_ms(lambda: plain_train_covariance_block(state.kernel, xs, xc, n, state.noise,
+                                                                   row0=h, col0=h))
+    s22["max_abs_err"] = err
+    steps["b1_s22"] = s22
+    log(json.dumps({"covariance_tile_times": [s22]}))
+    steps["downdate_forms"] = downdate_forms(state, n, h, b)
+    return steps, gp
+
+
+def downdate_forms(state, n: int, h: int, b: int) -> dict:
+    """Hybrid's two downdates at their deepest strips, L21's last
+    (``K21[:, j] - L21[:, :j0] L11[j, :j0]^T``, j0 = h - b) and S22's first
+    (``K22[:, :b] - L21 L21[:b]^T``), from the finished factor's own rows,
+    in float32 as one product and as one product per panel of L (as
+    ``ops/hybrid`` does), each against the same downdate in float64: the
+    largest error of each form, beside the largest entry."""
+    import torch
+
+    from friedrich_tpu_torch.ops.covariance import covariance_tile
+
+    l_full, x_pad, cap = state.l, state.x, state.capacity
+    j0 = h - b
+    k21 = covariance_tile(state.kernel, x_pad[h:], x_pad[j0:h], n, method=state.method, row0=h)
+    k22 = covariance_tile(state.kernel, x_pad[h:], x_pad[h:h + b], max(n - h, 0), state.noise, train=True,
+                          method=state.method)
+    out = {}
+    for name, k, a, r in (("l21_last", k21, l_full[h:cap, :j0], l_full[j0:h, :j0]),
+                          ("s22_first", k22, l_full[h:cap, :h], l_full[h:h + b, :h])):
+        exact = k.double() - chunked_product(a, r, torch.float64)
+        one = torch.addmm(k, a, r.mT, alpha=-1)
+        panels = k.clone()
+        for k0 in range(0, a.shape[1], b):
+            panels.addmm_(a[:, k0:k0 + b], r[:, k0:k0 + b].mT, alpha=-1)
+        out[name] = {"rows": a.shape[0], "depth": a.shape[1], "columns": b,
+                     "one_product_err": float((one.double() - exact).abs().max()),
+                     "panel_by_panel_err": float((panels.double() - exact).abs().max()),
+                     "max_abs": float(exact.abs().max())}
+        del exact, one, panels
+    del k21, k22
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase_9b_downdate_forms_vs_float64": out}))
+    return out
+
+
+def phase_float64_witness(fitted, n: int) -> dict:
+    """9e: the float64 witness of the float32 backends. The first ``n``
+    points of phase 9's data (capacity n + 512) at 6a's fitted
+    hyperparameters: a float64 dense model (cuSOLVER's factor of the whole
+    matrix) and float32 streamed, tiled and hybrid models, each asked 9's
+    4,096 queries in one solve and at the server's solve width; each
+    float32 model's largest distance from the witness, the tiled and hybrid
+    models' gated at the streamed model's + 1e-3."""
+    import torch
+
+    x, y, xq = bench_data(2 * n)[:3]
+    x, y = x[:n], y[:n]
+    cap = n + K_ADD
+    log(f"== phase 9e: float64 dense witness of the float32 backends, n={n}, capacity {cap}")
+    t0 = sync()
+    gp = phase9_build("dense", fitted, x, y, cap, dtype="float64")
+    witness_s = sync() - t0
+    w_mean, w_var = gp.predict_mean_variance(xq.astype(np.float64))
+    del gp
+    torch.cuda.empty_cache()
+    out = {"capacity": cap, "witness_build_s": witness_s, "solve_width": SERVE_BLOCK,
+           "tolerance": "the streamed model's error + 1e-3"}
+    for backend in ("streamed", "tiled", "hybrid"):
+        t0 = sync()
+        gp = phase9_build(backend, fitted, x, y, cap)
+        build_s = sync() - t0
+        row = {"build_s": build_s}
+        for label, kw in (("one_solve", {}), ("block", {"block": SERVE_BLOCK})):
+            mean, var = gp.predict_mean_variance(xq, **kw)
+            row[f"{label}_mean_err"] = float(np.abs(mean - w_mean).max())
+            row[f"{label}_var_err"] = float(np.abs(var - w_var).max())
+        out[backend] = row
+        del gp
+        torch.cuda.empty_cache()
+    log(json.dumps({"phase_9e": out}))
+    for backend in ("tiled", "hybrid"):
+        for key, err in out[backend].items():
+            if key.endswith("_err") and not err <= out["streamed"][key] + 1e-3:
+                fail(f"phase 9e: the float32 {backend} model's {key} is {err} from the float64 witness, the "
+                     f"streamed model's {out['streamed'][key]} (limit: the streamed model's + 1e-3)")
+    return out
+
+
+def phase_tiled_b1(fitted, n: int, by_shape: dict) -> dict:
+    """B1 at 9a's shape, the whole training covariance at capacity n + 512
+    in one launch, beside its bound, its launches on 9a and its plain
+    version on 4,096-row strips of the same matrix (the plain version of
+    the whole would not fit beside it)."""
+    import torch
+
+    from friedrich_tpu_torch.ops.covariance import plain_covariance_tile
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda
+
+    prior, kernel, noise = fitted
+    cap = n + K_ADD
+    x_pad = torch.zeros((cap, D), device="cuda")
+    x_pad[:n] = torch.as_tensor(bench_data(n)[0], device="cuda")
+    kernel = kernel.to(torch.float32, "cuda")
+    row = shape_time(f"train {cap}^2 (9a)", kernel, x_pad, x_pad, n, True, noise, by_shape)
+    worst = 0.0
+    for r0 in (0, n // 2, cap - 4096):
+        got = covariance_cuda.covariance(kernel, x_pad[r0:r0 + 4096], x_pad, n, noise, train=True, row0=r0)
+        want = plain_covariance_tile(kernel, x_pad[r0:r0 + 4096], x_pad, n, noise, train=True, row0=r0)
+        worst = max(worst, float((got - want).abs().max()))
+        if not excess(got, want, ATOL_F32, RTOL_F32) <= 0:
+            fail(f"phase 9a: the covariance kernel differs from its plain version on rows {r0}..")
+        del got, want
+    row["max_abs_err"] = worst
+    row["plain_ms"] = cuda_ms(lambda: plain_covariance_tile(kernel, x_pad[:4096], x_pad, n, noise,
+                                                            train=True))
+    row["plain_ms_is_of"] = "one 4,096-row strip"
+    del x_pad
+    torch.cuda.empty_cache()
+    log(json.dumps({"covariance_tile_times": [row]}))
+    return row
+
+
+def phase_serving(gp) -> dict:
+    """9c: ``AcceleratedGPServer`` over 9a's model: 4 ``GPClient`` threads
+    send 8 requests each of 1-1,024 rows (seed 9), alternately mean and
+    variance and mean only; each reply within SERVE_ATOL of the model's
+    in-process prediction of its rows at the server's solve width
+    (``block``), a dimension mismatch answered with status 1 on a
+    connection that stays usable, no status 2; each reply's distance from
+    the one-solve prediction of its rows printed beside it."""
+    import threading
+
+    import torch
+
+    from friedrich_tpu_torch import ConfigError, serving
+
+    log(f"== phase 9c: AcceleratedGPServer over 9a's model, {SERVE_CLIENTS} clients x "
+        f"{SERVE_REQUESTS} requests of 1-{SERVE_MAX_ROWS} rows")
+    rng = np.random.default_rng(9)
+    d = gp.state.input_dim
+    plan = [[(rng.normal(size=(int(rng.integers(1, SERVE_MAX_ROWS + 1)), d)), k % 2 == 0)
+             for k in range(SERVE_REQUESTS)] for _ in range(SERVE_CLIENTS)]
+    replies = [[None] * SERVE_REQUESTS for _ in range(SERVE_CLIENTS)]
+    latencies, errors = [], []
+    # ---- the main path: the server's batches; B1's launches are counted over it
+    reset_launches()
+    t_start = sync()
+    with serving.AcceleratedGPServer(gp, block=SERVE_BLOCK) as srv:
+        with serving.GPClient(port=srv.port, timeout=600.0) as c:
+            try:
+                c.predict(rng.normal(size=(3, d + 1)))
+                fail("phase 9c: a request of the wrong dimension was answered")
+            except ConfigError as e:
+                if "status 1" not in str(e):
+                    fail(f"phase 9c: a dimension mismatch was answered with {e}")
+            c.predict(plan[0][0][0][:2])  # the same connection, still usable
+        barrier = threading.Barrier(SERVE_CLIENTS)
+
+        def client(i):
+            try:
+                with serving.GPClient(port=srv.port, timeout=600.0) as c:
+                    barrier.wait()
+                    for k, (xq, both) in enumerate(plan[i]):
+                        t0 = time.perf_counter()
+                        replies[i][k] = c.predict_mean_variance(xq) if both else (c.predict(xq), None)
+                        latencies.append(time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 — a status 2 among them fails the phase
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        dispatches, per_dispatch = dict(srv.dispatches), dict(srv.requests_per_dispatch)
+    serve_s = sync() - t_start
+    b1 = read_launches()[0]
+    # ---- end of the main path
+    if errors:
+        fail(f"phase 9c: requests failed: {errors}")
+    worst, one_solve = 0.0, 0.0
+    for i in range(SERVE_CLIENTS):
+        for k, (xq, both) in enumerate(plan[i]):
+            mean, var = replies[i][k]
+            for which, kw in (("block", {"block": srv.block}), ("one_solve", {})):
+                want_mean, want_var = gp.predict_mean_variance(xq, **kw)
+                diff = float(np.abs(mean - want_mean).max())
+                if both:
+                    diff = max(diff, float(np.abs(var - want_var).max()))
+                if which == "block":
+                    worst = max(worst, diff)
+                else:
+                    one_solve = max(one_solve, diff)
+    lat = sorted(latencies)
+    rows = [xq.shape[0] for p in plan for xq, _ in p]
+    out = {"requests": len(rows), "rows": sum(rows), "serve_s": serve_s,
+           "latency_p50_s": lat[len(lat) // 2], "latency_p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+           "latency_max_s": lat[-1], "solve_width": srv.block, "dispatches_by_rows": dispatches,
+           "requests_per_dispatch": per_dispatch, "covariance_tile_launches": b1,
+           "max_abs_diff_vs_in_process": worst, "tolerance": SERVE_ATOL,
+           "max_abs_diff_vs_one_solve": one_solve}
+    log(json.dumps({"phase_9c": out}))
+    if len(latencies) != SERVE_CLIENTS * SERVE_REQUESTS:
+        fail(f"phase 9c: {len(latencies)} replies, expected {SERVE_CLIENTS * SERVE_REQUESTS}")
+    if b1 <= 0:
+        fail("phase 9c: serving did not launch the covariance kernel")
+    if not worst <= SERVE_ATOL:
+        fail(f"phase 9c: replies differ from the in-process predictions by {worst} (limit {SERVE_ATOL})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_daemon(fitted, n: int) -> dict:
+    """9d: the native daemon (``GPServer``, CPU float64) on a bundle the
+    port exported from a model of the first 8,192 points on the card, asked
+    256 rows; within DAEMON_ATOL of the card's predictions."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch import serving
+
+    log(f"== phase 9d: the native daemon on a bundle the port exported ({DAEMON_N} points)")
+    prior, kernel, noise = fitted
+    x, y = bench_data(n)[:2]
+    xq = np.random.default_rng(10).normal(size=(DAEMON_QUERIES, D))
+    gp = ft.GaussianProcess.new(prior, kernel, float(noise), None, x[:DAEMON_N], y[:DAEMON_N],
+                                dtype="float32", device="cuda")
+    mean, var = gp.predict_mean_variance(xq)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bundle_")
+    try:
+        path = os.path.join(tmp, "model.frsv")
+        t0 = time.perf_counter()
+        serving.export_bundle(gp, path)
+        export_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        try:
+            serving.build_daemon()
+        except Exception as e:  # noqa: BLE001 — a missing or failing g++ fails the phase
+            fail(f"phase 9d: the daemon did not build: {e}")
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with serving.GPServer(path, startup_timeout=300.0) as srv:
+            up_s = time.perf_counter() - t0
+            parts = np.array_split(xq, DAEMON_CONNECTIONS)
+            replies: list = [None] * len(parts)
+
+            def ask(i):
+                with serving.GPClient(port=srv.port, timeout=900.0) as c:
+                    replies[i] = c.predict_mean_variance(parts[i])
+
+            threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(parts))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            query_s = time.perf_counter() - t0
+            if any(r is None for r in replies):
+                fail("phase 9d: a connection to the daemon got no reply")
+            d_mean = np.concatenate([r[0] for r in replies])
+            d_var = np.concatenate([r[1] for r in replies])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del gp
+    torch.cuda.empty_cache()
+    out = {"points": DAEMON_N, "bundle_bytes": nbytes, "export_s": export_s, "daemon_build_s": build_s,
+           "daemon_startup_s": up_s, "daemon_query_256_s": query_s, "connections": DAEMON_CONNECTIONS,
+           "mean_max_abs_diff": float(np.abs(d_mean - mean).max()),
+           "var_max_abs_diff": float(np.abs(d_var - var).max()), "tolerance": DAEMON_ATOL}
+    log(json.dumps({"phase_9d": out}))
+    if not max(out["mean_max_abs_diff"], out["var_max_abs_diff"]) <= DAEMON_ATOL:
+        fail(f"phase 9d: the daemon's predictions differ from the card's: {out}")
+    return out
+
+
+def phase_b2_other_rows(explicit_launches: int, f64_launches: int) -> tuple[dict, dict]:
+    """B2's explicit bf16 prefix at 8c's middle panel (57,344 rows, 8,192
+    columns, a prefix chunk 8,192 deep; N(0, 0.01) entries, seed 0) and its
+    float64 instantiation at the middle panel of a float64 streamed factor
+    at capacity 4,096 (6c's streamed density): each against its plain
+    version and timed beside one ``torch.addmm`` of the downdate and its
+    bound; ``*_launches``: their launches on 8c's and 6c's runs."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.ops.covariance import plain_train_covariance_block
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda as pc
+    from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
+    from friedrich_tpu_torch.ops.partition import panel_widths
+    from friedrich_tpu_torch.ops.streamed import streamed_cholesky_factor
+
+    log("== phase 9: B2's explicit bf16 prefix (8c's middle panel) and float64 (6c's density factor)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kern = ft.kernels.SquaredExp(ls=0.5, ampl=1.0).to(torch.float32, "cuda")
+    cap, block = -(-OOC_N // OOC_BLOCK) * OOC_BLOCK, OOC_BLOCK
+    j0 = cap - SWEEP_ROWS
+    x = torch.randn((cap, D), device="cuda", generator=g)
+    prefix = (torch.randn((SWEEP_ROWS, block), device="cuda", generator=g) * 0.01).to(torch.bfloat16)
+    args = (kern, x[j0:], x[j0:j0 + block], None, OOC_N, OOC_NOISE, j0, block)
+    got = pc.panel_strip(*args, prefix=prefix)
+    want = plain_panel_strip(*args, prefix=prefix)
+    err = float((got - want).abs().max())
+    if not strip_excess(got, want, prefix, block, ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"], 0.0) <= 0:
+        fail(f"explicit bf16 prefix differs from its plain version at 8c's middle panel: {err}")
+    del got, want
+    k_strip = plain_train_covariance_block(kern, x[j0:], x[j0:j0 + block], OOC_N, OOC_NOISE, row0=j0,
+                                           col0=j0)
+    lib, lib_name = bf16_library_call(k_strip, prefix, prefix[:block])
+    bound, by = strip_bound_ms(SWEEP_ROWS, block, block, D, 4, BF16_FLOPS, prefix_itemsize=2)
+    explicit = {
+        "name": "panel_strip_bf16_explicit_prefix", "route": "cuda",
+        "source": "friedrich_tpu_torch/csrc/panel_strip_bf16.cu",
+        "replaces": "friedrich_tpu/ops/pallas/panel_fused.py:102", "launches": explicit_launches,
+        "max_abs_err": err, "ms": cuda_ms(lambda: pc.panel_strip(*args, prefix=prefix)),
+        "plain_ms": cuda_ms(lambda: plain_panel_strip(*args, prefix=prefix), reps=3),
+        "bound_ms": bound, "bound_by": by, "library_ms": cuda_ms(lib), "library_call": lib_name,
+        "bound": "tensor cores: one bf16 product at 989 TFLOP/s",
+        "shape": f"8c's middle panel: rows {SWEEP_ROWS}, B={block}, an explicit bf16 prefix {block} deep",
+    }
+    del lib, k_strip, prefix, x
+    torch.cuda.empty_cache()
+    cap64 = 4096
+    x64 = torch.as_tensor(np.random.default_rng(11).normal(size=(cap64, D)), device="cuda")
+    kern64 = ft.kernels.SquaredExp(ls=1.1, ampl=0.9).to(torch.float64, "cuda")
+    l_full, ok = streamed_cholesky_factor(kern64, x64, cap64 - 24, 1.0)
+    if not bool(ok):
+        fail("the float64 streamed factor at capacity 4,096 failed")
+    widths = panel_widths(cap64)
+    j0, block = int(np.sum(widths[:len(widths) // 2])), widths[len(widths) // 2]
+    rest = cap64 - j0
+    args = (kern64, x64[j0:], x64[j0:j0 + block], l_full, cap64 - 24, 1.0, j0, block)
+    got, want = pc.panel_strip(*args), plain_panel_strip(*args)
+    err = float((got - want).abs().max())
+    if not strip_excess(got, want, l_full[j0:, :j0], block, ATOL_F64, RTOL_F64, UNIT_ROUNDOFF["float64"],
+                        0.0) <= 0:
+        fail(f"float64 panel strip differs from its plain version: {err}")
+    k_strip = plain_train_covariance_block(kern64, x64[j0:], x64[j0:j0 + block], cap64 - 24, 1.0,
+                                           row0=j0, col0=j0)
+    l_tail, l_rows = l_full[j0:], l_full[j0:j0 + block]
+    l_tail, l_rows = l_tail[:, :j0], l_rows[:, :j0]
+    bound, by = strip_bound_ms(rest, block, j0, D, 8, FP64_FLOPS)
+    f64 = {
+        "name": "panel_strip_f64", "route": "cuda", "source": "friedrich_tpu_torch/csrc/panel_strip.cu",
+        "replaces": "friedrich_tpu/ops/pallas/panel_fused.py:102", "launches": f64_launches,
+        "max_abs_err": err, "ms": cuda_ms(lambda: pc.panel_strip(*args)),
+        "plain_ms": cuda_ms(lambda: plain_panel_strip(*args)), "bound_ms": bound, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1)),
+        "library_call": "torch.addmm(k_strip, L[j0:, :j0], L[j0:j0+B, :j0].T, alpha=-1), float64",
+        "bound": "float64 tensor cores at 67 TFLOP/s (the kernel is a SIMT loop on the CUDA cores)",
+        "shape": f"panel j0={j0} B={block} of a float64 streamed factor at capacity {cap64}",
+    }
+    del l_full, k_strip, got, want
+    torch.cuda.empty_cache()
+    log(json.dumps({"panel_strip_other_rows": [explicit, f64]}))
+    return explicit, f64
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--n", type=int, default=50_000,
@@ -2763,6 +3427,7 @@ def main() -> int:
     entry["max_abs_err"] = max(entry["max_abs_err"], b1_sub["max_abs_err"])
     entry["launches_default_flow"] = default["covariance_tile_launches"]
     streamed_entry["launches_default_flow"] = default["panel_strip_launches"]
+    fitted_6a = (gp.prior, gp.kernel.to(torch.float32, "cpu"), gp.noise)
     refit = phase_full_n_refit(gp)
     streamed_entry["launches_full_n_refit"] = refit["panel_strip_launches"]
     del gp
@@ -2800,8 +3465,33 @@ def main() -> int:
     bf16_entry["max_abs_err"] = max(bf16_entry["max_abs_err"], ooc["bf16_n100k"]["prefix_max_abs_err"])
     streamed_entry["max_abs_err"] = max(streamed_entry["max_abs_err"], ooc["f32_n50k"]["prefix_max_abs_err"])
     log(f"phase 8 took {time.perf_counter() - t8} s")
+    t9 = time.perf_counter()
+    ref = phase9_reference(fitted_6a, args.streamed_n)
+    # 9c serves 9a's model before 9b: two factors at 100,512 do not fit the card
+    tiled, gp = phase_tiled_hybrid("tiled", fitted_6a, args.streamed_n, ref)
+    served = phase_serving(gp)
+    del gp
+    torch.cuda.empty_cache()
+    b1_tiled = phase_tiled_b1(fitted_6a, args.streamed_n, tiled["b1_by_shape"])
+    hybrid, gp = phase_tiled_hybrid("hybrid", fitted_6a, args.streamed_n, ref, tiled["witness"])
+    del gp
+    torch.cuda.empty_cache()
+    phase_float64_witness(fitted_6a, WITNESS_N)
+    phase_daemon(fitted_6a, args.streamed_n)
+    f64_launches = sum(d["panel_strip_launches"] for d in map_fits["densities"]
+                       if d["dtype"] == "float64" and d["density"] == "streamed")
+    explicit_entry, f64_entry = phase_b2_other_rows(ooc["bf16_n100k"]["panel_strip_launches"], f64_launches)
+    entry["shapes"] += [b1_tiled, hybrid["b1_s22"]]
+    entry["max_abs_err"] = max(entry["max_abs_err"], b1_tiled["max_abs_err"], hybrid["b1_s22"]["max_abs_err"])
+    entry["launches_9a_tiled"] = tiled["covariance_tile_launches"]
+    entry["launches_9b_hybrid"] = hybrid["covariance_tile_launches"]
+    entry["launches_9c_serving"] = served["covariance_tile_launches"]
+    streamed_entry["launches_9b_hybrid"] = hybrid["panel_strip_launches"]
+    streamed_entry["max_abs_err"] = max(streamed_entry["max_abs_err"], hybrid["leaf_panel_max_abs_err"])
+    log(f"phase 9 took {time.perf_counter() - t9} s")
     log(smi_line())
-    log(json.dumps({"kernels": [entry, streamed_entry, bf16_entry, one_pass_entry]}))
+    log(json.dumps({"kernels": [entry, streamed_entry, bf16_entry, one_pass_entry, explicit_entry,
+                                f64_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -40,6 +40,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.profiling import scope
 from ._adapt import (
     GeneratorDraws,
     as_generator,
@@ -153,6 +154,7 @@ def _build_subtree(val_grad, edge, h0: float, eps: float, forward: bool, depth: 
                     divergent)
 
 
+@scope("nuts/transition")
 def transition(val_grad, z0, logp0, g0, eps: float, inv_mass, max_depth: int, draws):
     """One NUTS transition of one chain from ``z0`` (its density ``logp0``
     and gradient ``g0``) at step size ``eps`` (``friedrich_tpu/mcmc/

@@ -115,7 +115,8 @@ class GaussianProcess:
         """Raw constructor (``mod.rs:142-167``). ``dtype`` overrides the
         default compute dtype; ``device`` the default device (CUDA unless
         ``config.set_device`` says otherwise). ``backend``: ``"dense"``,
-        ``"streamed"`` or ``"auto"`` (``models/gp.resolve_backend``);
+        ``"streamed"``, ``"tiled"``, ``"hybrid"`` or ``"auto"``
+        (``models/gp.resolve_backend``);
         ``panel_block``: the streamed backend's panel width or width
         schedule (default ``ops/partition.panel_widths``); ``storage``
         (None or ``"bf16"``) and ``precision``: the factor storage dtype and
@@ -194,11 +195,14 @@ class GaussianProcess:
         xq, adapter = self._query(inputs)
         return adapter.vector(core.predict_variance(self._state, xq, self._weights))
 
-    def predict_mean_variance(self, inputs):
+    def predict_mean_variance(self, inputs, block: Optional[int] = None):
         """Shared-weights (mean, variance) (``mod.rs:290-326``) — one
-        forward sweep per batch against the cached ``L^-1 resid``."""
+        forward sweep per batch against the cached ``L^-1 resid``. With
+        ``block``, the sweep runs ``block`` columns at a time, so that each
+        query's answer does not depend on the others of the call
+        (``models/gp.sweep_moments``; what a server merging requests uses)."""
         xq, adapter = self._query(inputs)
-        mean, var = core.predict_mean_variance(self._state, xq, self._weights)
+        mean, var = core.predict_mean_variance(self._state, xq, self._weights, block)
         return adapter.pair(mean, var)
 
     def predict_covariance(self, inputs) -> torch.Tensor:

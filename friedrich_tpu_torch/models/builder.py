@@ -140,10 +140,12 @@ class GaussianProcessBuilder:
 
     def set_backend(self, backend: str) -> "GaussianProcessBuilder":
         """'dense' (materialize K, then factor), 'streamed' (build and factor
-        K panel by panel, never holding it) or 'auto' (streamed on a card
+        K panel by panel, never holding it), 'tiled' (K built into one
+        buffer and factored in place, right-looking: ``ops/tiled.py``),
+        'hybrid' (a streamed leading region, the rest factored in place:
+        ``ops/hybrid.py``; even capacities) or 'auto' (streamed on a card
         where the dense backend's K and L would not fit,
-        ``models/gp.resolve_backend``). 'tiled' and 'hybrid' are not ported
-        yet and raise."""
+        ``models/gp.resolve_backend``)."""
         check_backend(backend)
         self._backend = backend
         return self

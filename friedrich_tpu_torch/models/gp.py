@@ -1,6 +1,7 @@
 """Functional GP core: the model state and its operations.
 
-Counterpart of ``friedrich_tpu/models/gp.py`` (dense and streamed backends)
+Counterpart of ``friedrich_tpu/models/gp.py`` (dense, streamed, tiled and
+hybrid backends)
 and of the reference's ``GaussianProcess`` struct and methods
 (``gaussian_process/mod.rs:59-446``). :class:`GPState` is an immutable
 dataclass; every operation returns new tensors or a new state.
@@ -34,13 +35,16 @@ from ..ops.covariance import (
     kernel_diag,
     train_covariance_padded,
 )
+from ..ops.hybrid import hybrid_cholesky_factor
 from ..ops.streamed import STORAGE_DTYPES, streamed_cholesky_factor
-from ..utils.errors import ConfigError, not_ported
+from ..ops.tiled import tiled_cholesky_factor
+from ..utils.errors import ConfigError
+from ..utils.profiling import scope
 
 LOG_2PI = math.log(2.0 * math.pi)
 
-#: Backends of the JAX package that this port does not run yet.
-_NOT_PORTED_BACKENDS = ("tiled", "hybrid")
+#: The builder backends (``friedrich_tpu/models/builder.py:130-137``).
+BACKENDS = ("dense", "streamed", "tiled", "hybrid", "auto")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -60,8 +64,10 @@ class GPState:
     eps: Optional[float] = None
     method: str = "gram"
     # "dense" materializes K, then factors it; "streamed" builds and factors
-    # K panel by panel, never holding it; "auto" picks one per build
-    # (resolve_backend)
+    # K panel by panel, never holding it; "tiled" builds K into one buffer
+    # and factors it in place, right-looking (ops/tiled.py); "hybrid" streams
+    # a leading region and factors the rest in place (ops/hybrid.py); "auto"
+    # picks dense or streamed per build (resolve_backend)
     backend: str = "dense"
     # streamed-backend panel width or width schedule; None = the default
     # (ops/partition.panel_widths)
@@ -101,15 +107,13 @@ def pad_capacity(x: torch.Tensor, y_resid: torch.Tensor, cap: int) -> tuple[torc
 
 
 def check_backend(backend: str, storage: Optional[str] = None) -> None:
-    """Raise for a backend this port cannot run, an unknown factor storage,
-    or bf16 storage asked of a backend that is never streamed."""
-    if backend in _NOT_PORTED_BACKENDS:
-        raise not_ported(f"backend={backend!r}")
-    if backend not in ("dense", "streamed", "auto"):
+    """Raise for an unknown backend or factor storage, or bf16 storage asked
+    of a backend that is never streamed."""
+    if backend not in BACKENDS:
         raise ConfigError(f"unknown backend {backend!r}")
     if storage not in STORAGE_DTYPES:
         raise ConfigError(f"unknown factor storage {storage!r}")
-    if storage is not None and backend == "dense":
+    if storage is not None and backend not in ("streamed", "auto"):
         raise ConfigError(
             f"factor storage {storage!r} requires the 'streamed' backend (got {backend!r})"
         )
@@ -132,22 +136,31 @@ def resolve_backend(backend: str, cap: int, dtype: torch.dtype, device) -> str:
 
 def _build_factor(kernel, x_pad, n, noise, eps, method, backend="dense", block=None, l0=None,
                   storage=None, precision=None):
-    resolved = resolve_backend(backend, x_pad.shape[0], x_pad.dtype, x_pad.device)
-    if storage is not None and resolved != "streamed":
-        raise ConfigError(
-            f"factor storage {storage!r} requires the 'streamed' backend (got {resolved!r})"
-        )
-    if resolved == "streamed":
-        return streamed_cholesky_factor(kernel, x_pad, n, noise, eps=eps, block=block,
-                                        method=method, storage=storage, precision=precision,
-                                        l0=l0)
-    if precision is not None and backend != "auto":
-        raise ConfigError(
-            f"factor precision {precision!r} requires the 'streamed' backend (got {backend!r}); "
-            f"other backends run float32 matmuls at full precision"
-        )
-    k_pad = train_covariance_padded(kernel, x_pad, n, noise, method=method)
-    return factor(k_pad, eps)
+    """The factor of one build (``friedrich_tpu/models/gp.py:131-186``),
+    under the named scope ``gp/build_factor[<backend>]``. The tiled and
+    hybrid backends take their default tile and panel widths, as in the JAX
+    package; ``block`` and ``l0`` are the streamed backend's."""
+    with scope(f"gp/build_factor[{backend}]"):
+        resolved = resolve_backend(backend, x_pad.shape[0], x_pad.dtype, x_pad.device)
+        if storage is not None and resolved != "streamed":
+            raise ConfigError(
+                f"factor storage {storage!r} requires the 'streamed' backend (got {resolved!r})"
+            )
+        if resolved == "streamed":
+            return streamed_cholesky_factor(kernel, x_pad, n, noise, eps=eps, block=block,
+                                            method=method, storage=storage, precision=precision,
+                                            l0=l0)
+        if precision is not None and backend != "auto":
+            raise ConfigError(
+                f"factor precision {precision!r} requires the 'streamed' backend (got {backend!r}); "
+                f"other backends run float32 matmuls at full precision"
+            )
+        if resolved == "tiled":
+            return tiled_cholesky_factor(kernel, x_pad, n, noise, eps=eps, method=method)
+        if resolved == "hybrid":
+            return hybrid_cholesky_factor(kernel, x_pad, n, noise, eps=eps, method=method)
+        k_pad = train_covariance_padded(kernel, x_pad, n, noise, method=method)
+        return factor(k_pad, eps)
 
 
 def make_state(
@@ -211,7 +224,7 @@ def rebuild_cholesky(state: GPState, reuse_buffer: bool = False) -> tuple[GPStat
     coexist: at a capacity where two factors do not fit the card, that is
     what lets the rebuild run. ``state`` must not be used afterwards: its
     factor is overwritten, and on a failed rebuild (``ok`` False) it cannot
-    be recovered. The dense backend builds a new factor either way.
+    be recovered. The other backends build a new factor either way.
     """
     l_pad, ok = _build_factor(
         state.kernel, state.x, state.n, state.noise, state.eps, state.method,
@@ -341,19 +354,21 @@ class PredictWeights(NamedTuple):
 
 def derive_weights(state: GPState) -> PredictWeights:
     """Compute :class:`PredictWeights` (two single-column sweeps)."""
-    beta = _solve_lower(state, state.resid)
-    return PredictWeights(beta=beta, alpha=_solve_lower_t(state, beta))
+    with scope("gp/derive_weights"):
+        beta = _solve_lower(state, state.resid)
+        return PredictWeights(beta=beta, alpha=_solve_lower_t(state, beta))
 
 
 def predict_mean(
     state: GPState, xq: torch.Tensor, weights: Optional[PredictWeights] = None
 ) -> torch.Tensor:
     """Posterior mean: ``prior + K(xq, X) K^-1 resid`` (``mod.rs:226-244``)."""
-    c = _train_cross(state, xq)
-    if weights is not None:
-        return state.prior.mean(xq) + c.mT @ weights.alpha
-    w = _cho_solve(state, c)
-    return state.prior.mean(xq) + w.mT @ state.resid
+    with scope("gp/predict_mean"):
+        c = _train_cross(state, xq)
+        if weights is not None:
+            return state.prior.mean(xq) + c.mT @ weights.alpha
+        w = _cho_solve(state, c)
+        return state.prior.mean(xq) + w.mT @ state.resid
 
 
 def predict_variance(
@@ -362,25 +377,59 @@ def predict_variance(
     """Latent predictive variance — observation noise NOT added back,
     matching ``mod.rs:248-273`` (see ``:266-269``)."""
     del weights  # the variance needs only the factor
-    kl = _solve_lower(state, _train_cross(state, xq))
-    return kernel_diag(state.kernel, xq) - torch.sum(kl * kl, dim=0)
+    with scope("gp/predict_variance"):
+        kl = _solve_lower(state, _train_cross(state, xq))
+        return kernel_diag(state.kernel, xq) - torch.sum(kl * kl, dim=0)
+
+
+def sweep_moments(solve, c: torch.Tensor, beta: torch.Tensor,
+                  block: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(kl^T beta, colsum(kl * kl))`` for ``kl = solve(c)``: the one
+    forward sweep that serves a mean and a variance.
+
+    With ``block`` the columns of ``c`` are solved and reduced ``block`` at a
+    time, the last block zero-padded, so that every solve has one shape and
+    a column's result does not depend on the other columns: what lets a
+    server merge requests and answer each as a call of its own rows would
+    (``serving.AcceleratedGPServer``). Solves of different widths round
+    differently: on an NVIDIA H100 80GB HBM3 (700 W) at capacity 100,512 in
+    float32 they differed by up to 3.0e-3 (``chip_smoke.py`` phase 9c,
+    PERF.md). Without ``block`` the sweep is one solve of all the columns,
+    the cheapest for one call."""
+    if block is None:
+        kl = solve(c)
+        return kl.mT @ beta, torch.sum(kl * kl, dim=0)
+    m = c.shape[1]
+    fit, quad = c.new_empty(m), c.new_empty(m)
+    for lo in range(0, m, block):
+        blk = c[:, lo:lo + block]
+        k = blk.shape[1]
+        kl = solve(torch.nn.functional.pad(blk, (0, block - k)))
+        fit[lo:lo + k] = (kl.mT @ beta)[:k]
+        quad[lo:lo + k] = torch.sum(kl * kl, dim=0)[:k]
+    return fit, quad
 
 
 def predict_mean_variance(
-    state: GPState, xq: torch.Tensor, weights: Optional[PredictWeights] = None
+    state: GPState, xq: torch.Tensor, weights: Optional[PredictWeights] = None,
+    block: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean and variance (``mod.rs:290-326``). With ``weights``, ONE forward
-    sweep (``kl``) serves both the mean (``kl^T beta``) and the variance."""
-    c = _train_cross(state, xq)
-    base = kernel_diag(state.kernel, xq)
-    if weights is not None:
-        kl = _solve_lower(state, c)
-        mean = state.prior.mean(xq) + kl.mT @ weights.beta
-        return mean, base - torch.sum(kl * kl, dim=0)
-    w = _cho_solve(state, c)
-    mean = state.prior.mean(xq) + w.mT @ state.resid
-    var = base - torch.sum(c * w, dim=0)  # column-dot form of mod.rs:314-319
-    return mean, var
+    sweep (``kl``) serves both the mean (``kl^T beta``) and the variance;
+    ``block`` makes each query's answer independent of the other queries
+    (:func:`sweep_moments`) and needs ``weights``."""
+    with scope("gp/predict_mean_variance"):
+        c = _train_cross(state, xq)
+        base = kernel_diag(state.kernel, xq)
+        if weights is not None:
+            fit, quad = sweep_moments(lambda r: _solve_lower(state, r), c, weights.beta, block)
+            return state.prior.mean(xq) + fit, base - quad
+        if block is not None:
+            raise ValueError("a fixed-width sweep (block) needs the predict weights")
+        w = _cho_solve(state, c)
+        mean = state.prior.mean(xq) + w.mT @ state.resid
+        var = base - torch.sum(c * w, dim=0)  # column-dot form of mod.rs:314-319
+        return mean, var
 
 
 def predict_covariance(state: GPState, xq: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,7 @@ import torch
 from .. import config
 from ..ops.streamed_matvec import rademacher_probes, streamed_grad_matvec
 from ..utils.errors import CholeskyError, ConfigError
+from ..utils.profiling import scope
 from .gp import GPState, _cho_solve, rebuild_cholesky, resolve_backend
 from .optimizer import AdamState, _adam_delta, _init_params, log_iteration
 
@@ -58,32 +59,35 @@ def _grad_step_large(state: GPState, adam: AdamState, probes: torch.Tensor, i: i
     (``optimizer.rs:113-122``) and, on the scaled path, the closed-form
     rescale (``optimizer.rs:174,262-263``); ``progress`` is a bool and
     ``info`` carries ``max_delta`` and ``scale`` for the fit log."""
-    # a bf16-stored factor goes through the panel sweeps (``models/gp._cho_solve``)
-    sol = _cho_solve(state, torch.cat([state.resid[:, None], probes], dim=1))
-    alpha, kinv_z = sol[:, 0], sol[:, 1:]
-    dk_v = streamed_grad_matvec(
-        state.kernel, state.x, state.n, torch.cat([alpha[:, None], probes], dim=1),
-        method=state.method,
-    )  # (p, cap, 1 + s)
-    data_fit = dk_v[:, :, 0] @ alpha  # alpha^T dK_p alpha — exact
-    complexity = torch.mean(torch.einsum("is,pis->ps", kinv_z, dk_v[:, :, 1:]), dim=1)
-    if scalable:
-        scale = torch.dot(state.resid, alpha) / state.n
-        grads = (data_fit / scale - complexity) / 2.0  # optimizer.rs:180-192
-        adam, delta = _adam_delta(adam, grads, i)
-        kernel = state.kernel.with_params(adam.params).rescale(scale)  # optimizer.rs:262
-        noise = state.noise * scale  # optimizer.rs:263 (NOT sqrt)
-        adam = dataclasses.replace(adam, params=kernel.get_params())
-    else:
-        scale = torch.ones((), dtype=alpha.dtype, device=alpha.device)
-        grads_kernel = (data_fit - complexity) / 2.0
-        # Hutchinson tr(K^-1) over the live block (probes are zero on dead
-        # rows); log-space noise update (optimizer.rs:98-110)
-        tr_kinv = torch.mean(torch.einsum("is,is->s", probes, kinv_z))
-        noise_grad = state.noise * (torch.dot(alpha, alpha) - tr_kinv) * state.noise
-        adam, delta = _adam_delta(adam, torch.cat([grads_kernel, noise_grad[None]]), i)
-        kernel = state.kernel.with_params(adam.params[:-1])
-        noise = torch.exp(adam.params[-1])
+    with scope("fit_large/solves"):
+        # a bf16-stored factor goes through the panel sweeps (``models/gp._cho_solve``)
+        sol = _cho_solve(state, torch.cat([state.resid[:, None], probes], dim=1))
+        alpha, kinv_z = sol[:, 0], sol[:, 1:]
+    with scope("fit_large/grad_matvec"):
+        dk_v = streamed_grad_matvec(
+            state.kernel, state.x, state.n, torch.cat([alpha[:, None], probes], dim=1),
+            method=state.method,
+        )  # (p, cap, 1 + s)
+        data_fit = dk_v[:, :, 0] @ alpha  # alpha^T dK_p alpha — exact
+        complexity = torch.mean(torch.einsum("is,pis->ps", kinv_z, dk_v[:, :, 1:]), dim=1)
+    with scope("fit_large/adam"):
+        if scalable:
+            scale = torch.dot(state.resid, alpha) / state.n
+            grads = (data_fit / scale - complexity) / 2.0  # optimizer.rs:180-192
+            adam, delta = _adam_delta(adam, grads, i)
+            kernel = state.kernel.with_params(adam.params).rescale(scale)  # optimizer.rs:262
+            noise = state.noise * scale  # optimizer.rs:263 (NOT sqrt)
+            adam = dataclasses.replace(adam, params=kernel.get_params())
+        else:
+            scale = torch.ones((), dtype=alpha.dtype, device=alpha.device)
+            grads_kernel = (data_fit - complexity) / 2.0
+            # Hutchinson tr(K^-1) over the live block (probes are zero on dead
+            # rows); log-space noise update (optimizer.rs:98-110)
+            tr_kinv = torch.mean(torch.einsum("is,is->s", probes, kinv_z))
+            noise_grad = state.noise * (torch.dot(alpha, alpha) - tr_kinv) * state.noise
+            adam, delta = _adam_delta(adam, torch.cat([grads_kernel, noise_grad[None]]), i)
+            kernel = state.kernel.with_params(adam.params[:-1])
+            noise = torch.exp(adam.params[-1])
     max_delta = torch.max(torch.abs(delta))
     return adam, kernel, noise, bool(max_delta > convergence_fraction), {"max_delta": max_delta,
                                                                           "scale": scale}

@@ -41,6 +41,7 @@ from ..config import (
 from ..ops.cholesky import cho_solve
 from ..ops.covariance import gradient_covariances_padded
 from ..utils.errors import CholeskyError
+from ..utils.profiling import scope
 from .gp import GPState, log_marginal_likelihood, make_state, rebuild_cholesky, resolve_backend
 
 BETA1 = 0.9
@@ -93,27 +94,30 @@ def _generic_step(state: GPState, adam: AdamState, i: int, convergence_fraction:
 
     Returns ``(state, adam, progress, ok, info)``; ``info`` carries the
     step's ``max_delta`` (and a unit ``scale``) for the fit log."""
-    cov_inv, alpha = _inverse_and_alpha(state)
-    data_fit, complexity = _per_param_grads(state, cov_inv, alpha)
-    grads_kernel = (data_fit - complexity) / 2.0
+    with scope("fit/gradients"):
+        cov_inv, alpha = _inverse_and_alpha(state)
+        data_fit, complexity = _per_param_grads(state, cov_inv, alpha)
+        grads_kernel = (data_fit - complexity) / 2.0
 
-    # noise gradient (``optimizer.rs:52-57``): gradient(K, noise) =
-    # 2 noise I; the padded identity block inflates trace(K^-1) by
-    # (cap - n) — subtract.
-    noise_data_fit = torch.dot(alpha, alpha)
-    noise_complexity = torch.trace(cov_inv) - (state.capacity - state.n)
-    noise_grad = state.noise * (noise_data_fit - noise_complexity)
-    # log-space correction (``optimizer.rs:105-110``)
-    noise_grad = noise_grad * state.noise
+        # noise gradient (``optimizer.rs:52-57``): gradient(K, noise) =
+        # 2 noise I; the padded identity block inflates trace(K^-1) by
+        # (cap - n) — subtract.
+        noise_data_fit = torch.dot(alpha, alpha)
+        noise_complexity = torch.trace(cov_inv) - (state.capacity - state.n)
+        noise_grad = state.noise * (noise_data_fit - noise_complexity)
+        # log-space correction (``optimizer.rs:105-110``)
+        noise_grad = noise_grad * state.noise
 
-    grads = torch.cat([grads_kernel, noise_grad[None]])
-    adam, delta = _adam_delta(adam, grads, i)
-    max_delta = torch.max(torch.abs(delta))
-    progress = max_delta > convergence_fraction
+    with scope("fit/adam"):
+        grads = torch.cat([grads_kernel, noise_grad[None]])
+        adam, delta = _adam_delta(adam, grads, i)
+        max_delta = torch.max(torch.abs(delta))
+        progress = max_delta > convergence_fraction
 
-    kernel = state.kernel.with_params(adam.params[:-1])
-    state = state.replace(kernel=kernel, noise=torch.exp(adam.params[-1]))
-    state, ok = rebuild_cholesky(state)
+    with scope("fit/rebuild"):
+        kernel = state.kernel.with_params(adam.params[:-1])
+        state = state.replace(kernel=kernel, noise=torch.exp(adam.params[-1]))
+        state, ok = rebuild_cholesky(state)
     return state, adam, progress, ok, {"max_delta": max_delta, "scale": torch.ones_like(max_delta)}
 
 
@@ -123,21 +127,24 @@ def _scaled_step(state: GPState, adam: AdamState, i: int, convergence_fraction: 
 
     Returns ``(state, adam, progress, ok, info)``; ``info`` carries the
     closed-form ``scale`` (``optimizer.rs:174``) and ``max_delta``."""
-    cov_inv, alpha = _inverse_and_alpha(state)
-    scale = torch.dot(state.resid, alpha) / state.n
-    data_fit, complexity = _per_param_grads(state, cov_inv, alpha)
-    grads = (data_fit / scale - complexity) / 2.0  # optimizer.rs:180-192
+    with scope("fit/gradients"):
+        cov_inv, alpha = _inverse_and_alpha(state)
+        scale = torch.dot(state.resid, alpha) / state.n
+        data_fit, complexity = _per_param_grads(state, cov_inv, alpha)
+        grads = (data_fit / scale - complexity) / 2.0  # optimizer.rs:180-192
 
-    adam, delta = _adam_delta(adam, grads, i)
-    max_delta = torch.max(torch.abs(delta))
-    progress = max_delta > convergence_fraction
+    with scope("fit/adam"):
+        adam, delta = _adam_delta(adam, grads, i)
+        max_delta = torch.max(torch.abs(delta))
+        progress = max_delta > convergence_fraction
 
-    kernel = state.kernel.with_params(adam.params)
-    kernel = kernel.rescale(scale)  # optimizer.rs:262
-    noise = state.noise * scale  # optimizer.rs:263 (noise *= scale, not sqrt)
-    # read parameters back post-rescale (optimizer.rs:264)
-    adam = dataclasses.replace(adam, params=kernel.get_params())
-    state, ok = rebuild_cholesky(state.replace(kernel=kernel, noise=noise))
+    with scope("fit/rebuild"):
+        kernel = state.kernel.with_params(adam.params)
+        kernel = kernel.rescale(scale)  # optimizer.rs:262
+        noise = state.noise * scale  # optimizer.rs:263 (noise *= scale, not sqrt)
+        # read parameters back post-rescale (optimizer.rs:264)
+        adam = dataclasses.replace(adam, params=kernel.get_params())
+        state, ok = rebuild_cholesky(state.replace(kernel=kernel, noise=noise))
     return state, adam, progress, ok, {"max_delta": max_delta, "scale": scale}
 
 

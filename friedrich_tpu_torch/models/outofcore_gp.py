@@ -40,7 +40,7 @@ from ..ops.outofcore import (
 )
 from ..ops.streamed_matvec import rademacher_probes, streamed_grad_matvec
 from ..utils.errors import CholeskyError, ConfigError
-from .gp import LOG_2PI
+from .gp import LOG_2PI, sweep_moments
 from .multivariate_normal import MultivariateNormal
 from .optimizer import ADAM_EPS, AdamState, _adam_delta
 
@@ -137,13 +137,15 @@ class OutOfCoreGP:
         kl = outofcore_solve_lower(self.l_host, self._cross(xq))
         return kernel_diag(self.kernel, xq) - torch.sum(kl * kl, dim=0)
 
-    def predict_mean_variance(self, xq) -> tuple[torch.Tensor, torch.Tensor]:
-        """One streamed forward sweep serves both moments."""
+    def predict_mean_variance(self, xq, block: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """One streamed forward sweep serves both moments; with ``block``,
+        ``block`` columns at a time, so that each query's answer does not
+        depend on the others of the call (``models/gp.sweep_moments``)."""
         xq = _f32(xq, self.device)
         beta, _ = self._weights
-        kl = outofcore_solve_lower(self.l_host, self._cross(xq))
-        mean = self.prior.mean(xq) + kl.mT @ beta
-        return mean, kernel_diag(self.kernel, xq) - torch.sum(kl * kl, dim=0)
+        fit, quad = sweep_moments(lambda r: outofcore_solve_lower(self.l_host, r), self._cross(xq),
+                                  beta, block)
+        return self.prior.mean(xq) + fit, kernel_diag(self.kernel, xq) - quad
 
     def predict_in_batches(self, xq, batch_size: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
         xq = _f32(xq, self.device)

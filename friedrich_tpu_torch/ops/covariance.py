@@ -11,8 +11,8 @@ training covariance is the IDENTITY outside the live n x n block:
 so ``chol(K_pad) = [[L_live, 0], [0, I]]`` and triangular solves against
 zero-padded right-hand sides give zero in the dead region.
 
-**Dispatch.** ``cross_covariance``, ``train_covariance_padded`` and
-``cross_covariance_train_padded`` launch the CUDA covariance-tile kernel
+**Dispatch.** ``cross_covariance``, ``train_covariance_padded``,
+``cross_covariance_train_padded`` and ``covariance_tile`` launch the CUDA covariance-tile kernel
 (``ops/cuda/covariance_cuda.py``) for tensors on the GPU, and run their
 plain PyTorch versions (the ``plain_*`` functions below, which the kernel
 is held against) for tensors on the CPU. ``gradient_covariances_padded`` is
@@ -98,6 +98,19 @@ def plain_covariance_tile(kernel, x1: torch.Tensor, x2: torch.Tensor, n: int, no
         return plain_train_covariance_block(kernel, x1, x2, n, noise, row0=row0, method=method)
     rows = torch.arange(row0, row0 + x1.shape[0], device=x1.device)
     return torch.where((rows < n)[:, None], plain_cross_covariance(kernel, x1, x2, method), 0.0)
+
+
+def covariance_tile(kernel, x1: torch.Tensor, x2: torch.Tensor, n: int, noise=0.0,
+                    train: bool = False, method: str = "gram", row0: int = 0) -> torch.Tensor:
+    """One tile with the signature of the kernel's wrapper
+    (``covariance_cuda.covariance``): a launch for tensors on the GPU, its
+    plain version (:func:`plain_covariance_tile`) for tensors on the CPU.
+    The strips of the tiled and hybrid factorizations take it."""
+    if x1.device.type == "cpu":
+        return plain_covariance_tile(kernel, x1, x2, n, noise, train=train, method=method,
+                                     row0=row0)
+    return covariance_cuda.covariance(kernel, x1, x2, n, noise, train=train, method=method,
+                                      row0=row0)
 
 
 def cross_covariance(kernel, x1: torch.Tensor, x2: torch.Tensor,

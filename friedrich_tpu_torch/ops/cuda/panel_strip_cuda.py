@@ -33,8 +33,9 @@ and rounds the panel's own rows to bfloat16 once per launch into a scratch
 buffer this wrapper allocates (B x j0 bfloat16). Each product is exact in
 float32 and the sums are float32.
 
-The prefix is read in place from the factor (``l_full``, row stride cap) or
-given explicitly (``prefix``, a contiguous (cap - j0, C) tensor whose first B
+The prefix is read in place from the factor (``l_full``, row stride cap; the
+strip's rows may end before the factor's, ``end``: the hybrid
+factorization's leading region) or given explicitly (``prefix``, a contiguous (cap - j0, C) tensor whose first B
 rows are the strip's columns; the out-of-core factorization uploads it in
 chunks). The wrapper takes CUDA tensors only and raises on anything the
 kernel does not take. Its plain PyTorch version is
@@ -85,14 +86,15 @@ def variant(dtype: torch.dtype, prefix_dtype: torch.dtype, precision=None) -> st
 def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
                 l_full: torch.Tensor | None, n: int, noise, j0: int, block: int,
                 method: str = "gram", precision=None,
-                prefix: torch.Tensor | None = None) -> torch.Tensor:
-    """The (cap - j0, block) pre-factor strip as one kernel launch.
+                prefix: torch.Tensor | None = None, end: int | None = None) -> torch.Tensor:
+    """The (end - j0, block) pre-factor strip as one kernel launch.
 
-    ``x_tail`` holds rows ``j0..cap`` of the padded inputs, ``xj`` rows
-    ``j0..j0+block``. The prefix is either rows ``j0..cap`` of the first
-    ``j0`` columns of ``l_full``, the whole (cap, cap) factor, read in place,
-    or, with ``l_full=None``, ``prefix`` itself, (cap - j0, C). ``precision``
-    is the factor precision (:func:`variant`).
+    ``x_tail`` holds rows ``j0..end`` of the padded inputs, ``xj`` rows
+    ``j0..j0+block``. The prefix is either rows ``j0..end`` of the first
+    ``j0`` columns of ``l_full``, the whole (cap, cap) factor, read in place
+    (``end`` defaults to cap), or, with ``l_full=None``, ``prefix`` itself,
+    (cap - j0, C), and ``end`` is None. ``precision`` is the factor
+    precision (:func:`variant`).
     """
     global LAUNCHES
     if (l_full is None) == (prefix is None):
@@ -116,14 +118,19 @@ def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
         if l_full.shape[0] != l_full.shape[1]:
             raise ValueError(f"panel-strip kernel takes a square factor, got {tuple(l_full.shape)}")
         cap = l_full.shape[0]
-        rest, kdim, ldl = cap - j0, j0, cap
+        end = cap if end is None else end
+        if not j0 < end <= cap:
+            raise ValueError(f"panel-strip rows [{j0}, {end}) do not fit capacity {cap}")
+        rest, kdim, ldl = end - j0, j0, cap
         rows = l_full[j0:]  # row j0 of the factor; rows j0..j0+block are its first
     else:
+        if end is not None:
+            raise ValueError("panel-strip kernel takes an end row only with l_full")
         rest, kdim = prefix.shape
         ldl, cap = kdim, rest + j0
         rows = prefix
     if not (0 <= j0 and 1 <= block <= rest):
-        raise ValueError(f"panel [{j0}, {j0 + block}) does not fit capacity {cap}")
+        raise ValueError(f"panel [{j0}, {j0 + block}) does not fit rows [{j0}, {j0 + rest})")
     if (x_tail.ndim != 2 or xj.ndim != 2 or x_tail.shape[0] != rest
             or xj.shape != (block, x_tail.shape[1])):
         raise ValueError(

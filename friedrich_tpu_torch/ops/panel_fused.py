@@ -35,14 +35,14 @@ def downdate_operand(p: torch.Tensor, dtype: torch.dtype, precision=None) -> tor
 def plain_panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
                       l_full: torch.Tensor | None, n: int, noise, j0: int, block: int,
                       method: str = "gram", precision=None,
-                      prefix: torch.Tensor | None = None) -> torch.Tensor:
+                      prefix: torch.Tensor | None = None, end: int | None = None) -> torch.Tensor:
     """Plain version of :func:`panel_strip`: the masked kernel strip of
     ``friedrich_tpu/ops/streamed.py:_train_cov_panel_tail`` minus the fat-K
     downdate of ``_unrolled_body`` (``:268-281``), its operands as
     :func:`downdate_operand` gives them."""
     strip = plain_train_covariance_block(kernel, x_tail, xj, n, noise, row0=j0, col0=j0,
                                          method=method)
-    p = prefix if prefix is not None else l_full[j0:, :j0]
+    p = prefix if prefix is not None else l_full[j0:end, :j0]
     if p.shape[1] > 0:
         p = downdate_operand(p, strip.dtype, precision)
         strip = strip - p @ p[:block].mT
@@ -51,18 +51,19 @@ def plain_panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
 
 def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor, l_full: torch.Tensor | None,
                 n: int, noise, j0: int, block: int, method: str = "gram", precision=None,
-                prefix: torch.Tensor | None = None) -> torch.Tensor:
-    """The (cap - j0, block) pre-factor strip.
+                prefix: torch.Tensor | None = None, end: int | None = None) -> torch.Tensor:
+    """The (end - j0, block) pre-factor strip.
 
-    ``x_tail`` holds rows ``j0..cap`` of the padded inputs, ``xj`` rows
+    ``x_tail`` holds rows ``j0..end`` of the padded inputs, ``xj`` rows
     ``j0..j0+block``, and ``l_full`` is the (cap, cap) factor whose first
     ``j0`` columns are factored (float32, float64, or bfloat16 under float32
-    inputs); or ``l_full`` is None and ``prefix`` (cap - j0, C) is the
-    prefix. ``precision`` is the factor precision: ``"bf16"`` rounds a
-    float32 prefix to bfloat16 (one pass), any other mode keeps it.
+    inputs), ``end`` (default cap) the row after the strip's last; or
+    ``l_full`` is None and ``prefix`` (cap - j0, C) is the prefix.
+    ``precision`` is the factor precision: ``"bf16"`` rounds a float32
+    prefix to bfloat16 (one pass), any other mode keeps it.
     """
     if x_tail.device.type == "cpu":
         return plain_panel_strip(kernel, x_tail, xj, l_full, n, noise, j0, block, method,
-                                 precision, prefix)
+                                 precision, prefix, end)
     return panel_strip_cuda.panel_strip(kernel, x_tail, xj, l_full, n, noise, j0, block, method,
-                                        precision, prefix)
+                                        precision, prefix, end)

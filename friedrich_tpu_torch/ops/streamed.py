@@ -119,25 +119,41 @@ def streamed_cholesky_factor(kernel, x_pad: torch.Tensor, n: int, noise,
         l_full = l0.zero_()
     scope = matmul_precision(precision) if precision is not None else contextlib.nullcontext()
     with scope:
-        j0 = 0
-        for width in panel_widths(cap, block):
-            end = j0 + width
-            strip = panel_strip(kernel, x_pad[j0:], x_pad[j0:end], l_full, n, noise, j0, width,
-                                method, precision)
-            if eps is None:
-                ld, _ = cholesky(strip[:width])
-            else:
-                ld = cholesky_with_substitute(strip[:width], eps)
-            # written back in the storage dtype (rounded for bf16 storage)
-            l_full[j0:end, j0:end] = ld
-            if end < cap:
-                # below @ Ld^T = S[B:]
-                l_full[end:, j0:end] = torch.linalg.solve_triangular(
-                    ld.mT, strip[width:], upper=True, left=False
-                )
-            del strip
-            j0 = end
+        factor_panels(l_full, kernel, x_pad, n, noise, panel_widths(cap, block), eps, method,
+                      precision)
     # whole-factor finiteness: a sum propagates NaN/inf with no (cap, cap)
     # temporary; bfloat16 storage accumulates in float32
     acc = torch.float32 if store_dtype == torch.bfloat16 else store_dtype
     return l_full, torch.isfinite(torch.sum(l_full, dtype=acc))
+
+
+def factor_panels(l_full: torch.Tensor, kernel, x_pad: torch.Tensor, n: int, noise, widths,
+                  eps: Optional[float] = None, method: str = "gram",
+                  precision: Optional[str] = None) -> None:
+    """The left-looking panel loop of :func:`streamed_cholesky_factor` over
+    the leading ``size = sum(widths)`` rows and columns of the (cap, cap)
+    factor ``l_full``, in place: the factor of K(x_pad[:size]) is written
+    into ``l_full[:size, :size]`` (lower triangle and diagonal blocks; rows
+    and columns from ``size`` are not touched). The whole factorization
+    takes ``size = cap``; the hybrid factorization's leading region
+    (``ops/hybrid.py``) a smaller one, each panel strip then ending at row
+    ``size``."""
+    size = sum(widths)
+    j0 = 0
+    for width in widths:
+        end = j0 + width
+        strip = panel_strip(kernel, x_pad[j0:size], x_pad[j0:end], l_full, n, noise, j0, width,
+                            method, precision, end=size)
+        if eps is None:
+            ld, _ = cholesky(strip[:width])
+        else:
+            ld = cholesky_with_substitute(strip[:width], eps)
+        # written back in the storage dtype (rounded for bf16 storage)
+        l_full[j0:end, j0:end] = ld
+        if end < size:
+            # below @ Ld^T = S[B:]
+            l_full[end:size, j0:end] = torch.linalg.solve_triangular(
+                ld.mT, strip[width:], upper=True, left=False
+            )
+        del strip
+        j0 = end

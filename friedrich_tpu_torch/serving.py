@@ -1,0 +1,424 @@
+"""Serving: bundle export, the native daemon, the device-backed server and
+the client.
+
+Counterpart of ``friedrich_tpu/serving.py``, with the same bundle format and
+wire protocol, so that the daemon serves a bundle of either package and
+either package's client talks to either package's server. A trained model is
+exported to a flat binary bundle (training inputs, prior residuals, Cholesky
+factor, kernel and prior spec: the state the reference persists with serde,
+``gaussian_process/mod.rs:58``), which ``native/friedrich_served`` (C++,
+linked against ``libfriedrich_native.so``, both built by ``native.build``
+into ``friedrich_tpu_torch/_build/``) serves on the CPU in float64 over a
+length-prefixed binary TCP protocol. :class:`AcceleratedGPServer` speaks the
+same protocol from a live model on the device it lives on.
+
+Typical use::
+
+    from friedrich_tpu_torch import serving
+    serving.export_bundle(gp, "model.frsv")
+    with serving.GPServer("model.frsv") as srv:
+        client = serving.GPClient(port=srv.port)
+        mean, var = client.predict_mean_variance(xq)
+
+    with serving.AcceleratedGPServer(gp) as srv:   # on the model's card
+        ...
+"""
+
+from __future__ import annotations
+
+import socket
+import struct
+import subprocess
+import threading
+import time
+from collections import Counter
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import native
+from .utils.errors import ConfigError
+from .utils.profiling import scope
+
+_BUNDLE_MAGIC = b"FRSERVE1"
+_REQ_MAGIC = 0x46525131
+_RESP_MAGIC = 0x46525231
+_FLAG_VARIANCE = 1
+
+_PRIOR_KINDS = {"ZeroPrior": 0, "ConstantPrior": 1, "LinearPrior": 2}
+
+
+def _prior_spec(prior) -> tuple[int, np.ndarray]:
+    name = type(prior).__name__
+    if name not in _PRIOR_KINDS:
+        raise ConfigError(f"serving does not support prior {name!r}")
+    if name == "ZeroPrior":
+        params = np.zeros(0)
+    elif name == "ConstantPrior":
+        params = np.array([float(prior.c)])
+    else:  # LinearPrior: [w_0..w_{d-1}, intercept]
+        params = np.concatenate([native.to_f64(prior.weights).ravel(), [float(prior.intercept)]])
+    return _PRIOR_KINDS[name], np.ascontiguousarray(params, dtype=np.float64)
+
+
+def export_bundle(gp, path) -> None:
+    """Write a serving bundle for a trained :class:`GaussianProcess` (or a
+    state: anything with ``x``, ``resid``, ``l``, ``n``, ``noise``,
+    ``kernel`` and ``prior``, tensors or arrays). Arrays are stored in
+    float64, each value exactly (a bfloat16 factor too), sliced to the live
+    row count."""
+    state = getattr(gp, "state", gp)
+    n = int(state.n)
+    d = int(state.x.shape[1])
+    x = native.to_f64(state.x[:n])
+    resid = native.to_f64(state.resid[:n])
+    l_mat = native.to_f64(state.l[:n, :n])
+    op, kid1, p1, kid2, p2 = native._composite_spec(state.kernel)
+    prior_kind, prior_params = _prior_spec(state.prior)
+
+    def _i64(v):
+        return struct.pack("<q", v)
+
+    with open(path, "wb") as f:
+        f.write(_BUNDLE_MAGIC)
+        f.write(_i64(op))
+        f.write(_i64(kid1) + _i64(len(p1)) + p1.astype("<f8").tobytes())
+        f.write(_i64(kid2) + _i64(len(p2)) + p2.astype("<f8").tobytes())
+        f.write(_i64(prior_kind) + _i64(len(prior_params)) + prior_params.astype("<f8").tobytes())
+        f.write(struct.pack("<d", float(state.noise)))
+        f.write(_i64(n) + _i64(d))
+        f.write(x.astype("<f8").tobytes())
+        f.write(resid.astype("<f8").tobytes())
+        f.write(l_mat.astype("<f8").tobytes())
+
+
+def build_daemon() -> Path:
+    """The serving daemon built from ``native/friedrich_served.cpp`` beside
+    the native library it links against (``native.build``)."""
+    return native.build() / native.DAEMON_NAME
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class GPServer:
+    """Runs ``friedrich_served`` on a bundle; context-manager friendly.
+
+    The daemon is stopped by its exact PID on :meth:`close`."""
+
+    def __init__(self, bundle_path, port: Optional[int] = None,
+                 startup_timeout: float = 10.0):
+        self.bundle_path = str(bundle_path)
+        self.port = port or _free_port()
+        binary = build_daemon()
+        self._proc = subprocess.Popen(
+            [str(binary), self.bundle_path, str(self.port)],
+            stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL,
+        )
+        deadline = time.time() + startup_timeout
+        while True:
+            if self._proc.poll() is not None:
+                raise ConfigError(
+                    f"friedrich_served exited with {self._proc.returncode} "
+                    f"(bad bundle or port {self.port} in use?)"
+                )
+            try:
+                with socket.create_connection(("127.0.0.1", self.port), timeout=0.2):
+                    return
+            except OSError:
+                if time.time() > deadline:
+                    self._proc.kill()
+                    self._proc.wait()
+                    raise ConfigError("friedrich_served did not come up")
+                time.sleep(0.05)
+
+    def close(self) -> None:
+        if self._proc.poll() is None:
+            self._proc.terminate()
+            try:
+                self._proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait()
+
+    def __enter__(self) -> "GPServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class AcceleratedGPServer:
+    """Serve a live model over the daemon's wire protocol, on the device
+    the model lives on.
+
+    Where :class:`GPServer` runs the C++ daemon (CPU, float64), this server
+    keeps the trained model resident: on a card each batch is one
+    ``predict_mean_variance`` (the covariance-tile kernel in cross mode and
+    one triangular solve against the factor). ``model`` is anything with
+    ``predict_mean_variance(xq, block=)`` taking a tensor and a ``state.x``
+    (or bare ``.x``) feature tensor: :class:`GaussianProcess` or
+    :class:`OutOfCoreGP`.
+
+    Thread per connection, like the daemon. Concurrent requests are
+    batched continuously: while the device runs one batch, arrivals queue,
+    and the dispatcher merges everything queued into the next single sweep
+    (a sweep reads the whole factor once, so co-batched requests share that
+    read). Each batch is solved ``block`` columns at a time, the last block
+    zero-padded (``models/gp.sweep_moments``), so that a reply does not
+    depend on the requests it was merged with: it equals the model's
+    ``predict_mean_variance(rows, block=block)`` of its own rows. The rows
+    themselves are not padded: eager PyTorch compiles nothing per shape.
+    A lone request pays a whole ``block``-column solve; a smaller ``block``
+    makes small requests cheaper and large batches dearer (PERF.md).
+    Batches are chunked above ``max_rows``; a lone request dispatches at
+    once. ``dispatches`` counts the sweeps by their rows and
+    ``requests_per_dispatch`` the requests each merged.
+    """
+
+    def __init__(self, model, host: str = "127.0.0.1",
+                 port: Optional[int] = None, max_batch: int = 1 << 20,
+                 max_rows: int = 4096, block: int = 256):
+        self._model = model
+        # GaussianProcess keeps features on .state.x; OutOfCoreGP on .x
+        feats = getattr(model, "state", model).x
+        self._d = int(feats.shape[1])
+        self._x_dtype = feats.dtype  # the wire is float64; the model may be float32
+        self._device = feats.device
+        self._max_batch = max_batch
+        self._max_rows = max_rows
+        self.block = block
+        self.dispatches: Counter = Counter()
+        self.requests_per_dispatch: Counter = Counter()
+        self._pending: list = []  # [xq, out_slot, event] triples
+        self._cond = threading.Condition()
+        self._closing = False
+        self._dispatcher = threading.Thread(target=self._dispatch_loop, daemon=True)
+        self._dispatcher.start()
+        self._lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._lsock.bind((host, port or 0))
+        self._lsock.listen(16)
+        self.host = host
+        self.port = self._lsock.getsockname()[1]
+        self._accept_thread = threading.Thread(target=self._accept_loop, daemon=True)
+        self._accept_thread.start()
+
+    # -- socket plumbing ---------------------------------------------------
+    def _accept_loop(self) -> None:
+        while not self._closing:
+            try:
+                conn, _ = self._lsock.accept()
+            except OSError:
+                return  # listening socket closed
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            threading.Thread(target=self._serve_conn, args=(conn,), daemon=True).start()
+
+    @staticmethod
+    def _recv_exact(conn, nbytes: int) -> Optional[bytes]:
+        buf = bytearray()
+        while len(buf) < nbytes:
+            chunk = conn.recv(nbytes - len(buf))
+            if not chunk:
+                return None
+            buf.extend(chunk)
+        return bytes(buf)
+
+    def _serve_conn(self, conn) -> None:
+        try:
+            while True:
+                head = self._recv_exact(conn, 8)
+                if head is None:
+                    return
+                magic, flags = struct.unpack("<II", head)
+                if magic != _REQ_MAGIC:
+                    return
+                dims = self._recv_exact(conn, 16)
+                if dims is None:
+                    return
+                nq, d = struct.unpack("<QQ", dims)
+                if nq == 0 or nq > self._max_batch or d != self._d:
+                    # drain the payload so that the connection stays usable
+                    # for the next request (the daemon closes instead)
+                    if nq <= self._max_batch:
+                        self._recv_exact(conn, 8 * nq * d)
+                    conn.sendall(struct.pack("<IIQ", _RESP_MAGIC, 1, 0))
+                    if nq > self._max_batch:
+                        return
+                    continue
+                data = self._recv_exact(conn, 8 * nq * d)
+                if data is None:
+                    return
+                xq = np.frombuffer(data, dtype="<f8").reshape(nq, d)
+                try:
+                    mean, var = self._predict(xq)
+                except Exception:  # noqa: BLE001 — model or device error:
+                    # the request was well formed; a status-2 reply keeps
+                    # the connection usable
+                    conn.sendall(struct.pack("<IIQ", _RESP_MAGIC, 2, 0))
+                    continue
+                conn.sendall(
+                    struct.pack("<IIQ", _RESP_MAGIC, 0, nq)
+                    + mean.astype("<f8").tobytes()
+                    + (var.astype("<f8").tobytes() if flags & _FLAG_VARIANCE else b"")
+                )
+        except OSError:
+            return
+        finally:
+            conn.close()
+
+    def _predict(self, xq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Submit to the continuous-batching dispatcher and wait."""
+        out: dict = {}
+        ev = threading.Event()
+        with self._cond:
+            if self._closing:
+                # the dispatcher may already have drained and exited; an
+                # enqueue now would wait forever
+                raise RuntimeError("server is closing")
+            self._pending.append((xq, out, ev))
+            self._cond.notify()
+        # bounded waits, so that a dead dispatcher cannot hang the
+        # connection's thread: if it exits while the event is unset, the
+        # request fails
+        while not ev.wait(timeout=1.0):
+            if not self._dispatcher.is_alive() and not ev.is_set():
+                raise RuntimeError("dispatcher exited before answering")
+        if "error" in out:
+            raise out["error"]
+        return out["mean"], out["var"]
+
+    def _dispatch_loop(self) -> None:
+        """Continuous batching: everything queued runs as ONE sweep."""
+        while True:
+            with self._cond:
+                while not self._pending and not self._closing:
+                    self._cond.wait(timeout=0.5)
+                if self._closing and not self._pending:
+                    return
+                batch, self._pending = self._pending, []
+            # chunk oversized merges, so that one giant batch cannot starve
+            # the queue
+            rows = [b[0].shape[0] for b in batch]
+            while batch:
+                take, total = 0, 0
+                while take < len(batch) and (take == 0 or total + rows[take] <= self._max_rows):
+                    total += rows[take]
+                    take += 1
+                chunk, batch = batch[:take], batch[take:]
+                rows = rows[take:]
+                self._run_chunk(chunk, total)
+
+    def _run_chunk(self, chunk, total: int) -> None:
+        # the WHOLE body runs under try: an exception in the merge (not
+        # only in the model call) must reach the waiters, not end the
+        # dispatcher thread, which would leave every later request waiting
+        try:
+            xq = torch.as_tensor(np.concatenate([c[0] for c in chunk], axis=0), dtype=self._x_dtype,
+                                 device=self._device)
+            with scope("serving/batch"):
+                mean, var = self._model.predict_mean_variance(xq, block=self.block)
+            mean = torch.as_tensor(mean).detach().to("cpu", torch.float64).numpy()
+            var = torch.as_tensor(var).detach().to("cpu", torch.float64).numpy()
+            self.dispatches[total] += 1
+            self.requests_per_dispatch[len(chunk)] += 1
+            off = 0
+            for x, out, ev in chunk:
+                k = x.shape[0]
+                out["mean"] = mean[off:off + k]
+                out["var"] = var[off:off + k]
+                off += k
+                ev.set()
+        except Exception as e:  # noqa: BLE001 — delivered to every waiter
+            for _, out, ev in chunk:
+                out["error"] = e
+                ev.set()
+
+    def close(self) -> None:
+        self._closing = True
+        try:
+            # a shutdown wakes the accept loop's blocked accept() at once; a
+            # close alone leaves it blocked until the join's timeout
+            self._lsock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._lsock.close()
+        except OSError:
+            pass
+        self._accept_thread.join(timeout=5)
+        with self._cond:
+            self._cond.notify()
+
+    def __enter__(self) -> "AcceleratedGPServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class GPClient:
+    """Blocking client of the serving protocol (one persistent connection;
+    requests are sent one after another)."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 timeout: float = 60.0):
+        self._sock = socket.create_connection((host, port), timeout=timeout)
+        self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.host = host
+        self.port = port
+
+    def close(self) -> None:
+        self._sock.close()
+
+    def __enter__(self) -> "GPClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _recv_exact(self, nbytes: int) -> bytes:
+        buf = bytearray()
+        while len(buf) < nbytes:
+            chunk = self._sock.recv(nbytes - len(buf))
+            if not chunk:
+                raise ConfigError("serving connection closed mid-response")
+            buf.extend(chunk)
+        return bytes(buf)
+
+    def _request(self, xq, want_variance: bool):
+        xq = native.to_f64(xq)
+        if xq.ndim != 2:
+            raise ConfigError(f"queries must be 2-D, got shape {xq.shape}")
+        m, d = xq.shape
+        flags = _FLAG_VARIANCE if want_variance else 0
+        self._sock.sendall(struct.pack("<IIQQ", _REQ_MAGIC, flags, m, d) + xq.astype("<f8").tobytes())
+        magic, status = struct.unpack("<II", self._recv_exact(8))
+        if magic != _RESP_MAGIC:
+            raise ConfigError("bad response magic from friedrich_served")
+        (count,) = struct.unpack("<Q", self._recv_exact(8))
+        if status != 0:
+            raise ConfigError(
+                f"friedrich_served rejected the request (status {status}: "
+                f"{'server-side prediction error' if status == 2 else 'query dim mismatch or oversized batch?'})"
+            )
+        mean = np.frombuffer(self._recv_exact(8 * count), dtype="<f8").copy()
+        if not want_variance:
+            return mean, None
+        var = np.frombuffer(self._recv_exact(8 * count), dtype="<f8").copy()
+        return mean, var
+
+    def predict(self, xq) -> np.ndarray:
+        """Posterior mean (``mod.rs:226-244`` semantics)."""
+        return self._request(xq, want_variance=False)[0]
+
+    def predict_mean_variance(self, xq) -> tuple[np.ndarray, np.ndarray]:
+        """Posterior mean and latent variance (``mod.rs:290-326``;
+        observation noise not added back, as in the reference)."""
+        return self._request(xq, want_variance=True)

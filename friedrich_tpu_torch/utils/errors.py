@@ -39,10 +39,3 @@ class ShapeError(FriedrichError):
 
 class ConfigError(FriedrichError):
     """Invalid configuration value (negative noise, bad epsilon, ...)."""
-
-
-def not_ported(what: str) -> ConfigError:
-    """The error for a path of the JAX package this port does not run yet."""
-    return ConfigError(
-        f"{what} is not yet ported to friedrich_tpu_torch; see ROADMAP.md"
-    )

@@ -82,8 +82,7 @@ def factor_from_numpy(l_np: np.ndarray, storage, dtype: torch.dtype, device) -> 
 def load_gp(path):
     """A :class:`~..models.api.GaussianProcess` from a file written by
     :func:`save_gp` or by the JAX package, on the default device
-    (:func:`~..config.resolve_device`). A tiled/hybrid backend raises: it is
-    not ported."""
+    (:func:`~..config.resolve_device`), any of the JAX package's backends."""
     from ..interop import kernel_from_spec, prior_from_spec
     from ..models.api import GaussianProcess
     from ..models.gp import GPState, check_backend

@@ -1,6 +1,6 @@
 """Public surface of the PyTorch port: the demo against the JAX package's
-demo, the device policy, the paths not yet ported, input polymorphism and
-configuration errors."""
+demo, the device policy, the knobs that once were not ported, input
+polymorphism and configuration errors."""
 
 import re
 
@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import friedrich_tpu as jft
 import friedrich_tpu.demo as jdemo
 import friedrich_tpu_torch as tft
 import friedrich_tpu_torch.kernels as tk
@@ -71,18 +72,32 @@ def _raises(match):
     return check
 
 
-NOT_PORTED = _raises("not yet ported to friedrich_tpu_torch")
+def _trains_like_jax(backend):
+    """The builder on ``backend`` trains a model whose predictions are the
+    JAX package's on the same backend."""
+    def check(call):
+        builder = call()
+        assert isinstance(builder, tft.GaussianProcessBuilder)
+        gp = builder.set_noise(0.2).train()
+        assert gp.state.backend == backend
+        jgp = jft.GaussianProcess.builder(np.asarray(X), np.asarray(Y)).set_backend(backend) \
+            .set_noise(0.2).train()
+        xq = np.array([[0.5], [2.0], [4.5]])
+        for got, want in zip(gp.predict_mean_variance(xq), jgp.predict_mean_variance(xq)):
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-9, atol=1e-12)
+    return check
 
 
-# The factor storage and precision knobs are ported: each case that raised
-# "not yet ported" now runs, or raises the JAX package's own error for a
-# combination that package refuses too (bf16 storage of float64 inputs or
-# on the dense backend). The tiled and hybrid backends still raise.
+# The factor storage and precision knobs and the tiled and hybrid backends
+# are ported: each case that raised "not yet ported" now runs (a tiled or
+# hybrid model predicts as the JAX package's does), or raises the JAX
+# package's own error for a combination that package refuses too (bf16
+# storage of float64 inputs or on the dense backend).
 @pytest.mark.parametrize("call,check", [
     (lambda: tft.GaussianProcessBuilder(X, Y).set_backend("streamed").set_factor_precision("f32"),
      _returns_builder),
-    (lambda: tft.GaussianProcessBuilder(X, Y).set_backend("tiled"), NOT_PORTED),
-    (lambda: tft.GaussianProcessBuilder(X, Y).set_backend("hybrid"), NOT_PORTED),
+    (lambda: tft.GaussianProcessBuilder(X, Y).set_backend("tiled"), _trains_like_jax("tiled")),
+    (lambda: tft.GaussianProcessBuilder(X, Y).set_backend("hybrid"), _trains_like_jax("hybrid")),
     (lambda: tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, X, Y, backend="streamed",
                                      storage="bf16"), _raises("float32 inputs")),
     (lambda: tft.GaussianProcessBuilder(X, Y).set_factor_storage("bf16"), _returns_builder),

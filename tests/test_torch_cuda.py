@@ -627,3 +627,107 @@ def test_density_at_an_underflowed_lengthscale_on_the_card(card, backend):
     theta[0] = -800.0
     val = logp(theta)
     assert not bool(torch.isnan(val))
+
+
+# The hybrid factorization's leaf: a strip whose rows end at ``end`` < cap
+# (rows j0..end of the factor, row stride cap), at ragged shapes, on every
+# instantiation's feed: the float32 kernel's TMA (cap 1,000) and cp.async
+# (1,001) producers, float64; NaN right of j0 and below ``end`` must never be
+# read.
+@pytest.mark.parametrize("cap", (1000, 1001))
+@pytest.mark.parametrize("dtype,rtol,atol,unit,split", [
+    (torch.float32, 2e-5, 2e-5, 2.0**-24, pc.SPLIT_ERROR), (torch.float64, 0, 1e-12, 2.0**-53, 0.0)],
+    ids=["f32", "f64"])
+def test_panel_strip_with_an_end_row_matches_plain_version(card, dtype, rtol, atol, unit, split, cap):
+    rng = np.random.default_rng(76)
+    n = 937
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), dtype=dtype, device=card)
+    l_full = torch.as_tensor(np.tril(rng.normal(size=(cap, cap)) * 0.1), dtype=dtype, device=card)
+    kern = KERNELS["Composite"].to(dtype, card)
+    for j0, block, end in ((0, 96, 500), (96, 96, 500), (404, 96, 500), (300, 77, 613), (0, 128, 128)):
+        prefix = l_full.clone()
+        prefix[:, j0:] = float("nan")
+        prefix[end:] = float("nan")
+        before = pc.LAUNCHES
+        got = panel_fused.panel_strip(kern, x[j0:end], x[j0:j0 + block], prefix, n, 0.3, j0, block,
+                                      end=end)
+        assert pc.LAUNCHES == before + 1 and got.shape == (end - j0, block)
+        want = panel_fused.plain_panel_strip(kern, x[j0:end], x[j0:j0 + block], prefix, n, 0.3, j0,
+                                             block, end=end)
+        bound = (j0 * unit + split) * (prefix[j0:end, :j0].abs() @ prefix[j0:j0 + block, :j0].abs().mT)
+        assert bool(((got - want).abs() <= atol + rtol * want.abs() + bound).all())
+    with pytest.raises(ValueError, match="do not fit"):
+        pc.panel_strip(kern, x[10:], x[10:20], l_full, n, 0.3, 10, 10, end=cap + 1)
+
+
+# The hybrid factorization's K21 (cross mode, rows from h) and S22 (train
+# mode shifted to the strip's diagonal: n - c0 live) strips against the
+# plain version, where the live block ends inside, before and after them.
+@pytest.mark.parametrize("n", (300, 700, 1001))
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5), (torch.float64, 0, 1e-12)],
+                         ids=["f32", "f64"])
+def test_covariance_at_the_hybrid_strips_matches_plain_version(card, dtype, rtol, atol, n):
+    rng = np.random.default_rng(77)
+    cap, h, block = 1002, 501, 167
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), dtype=dtype, device=card)
+    kern = KERNELS["SquaredExp"].to(dtype, card)
+    for j0 in (0, 334):
+        got = cov.covariance_tile(kern, x[h:], x[j0:j0 + block], n, row0=h)
+        want = cov.plain_covariance_tile(kern, x[h:], x[j0:j0 + block], n, row0=h)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    for c0 in (h, h + block, cap - block):
+        got = cov.covariance_tile(kern, x[c0:], x[c0:c0 + block], max(n - c0, 0), 0.3, train=True)
+        want = cov.plain_train_covariance_block(kern, x[c0:], x[c0:c0 + block], n, 0.3, row0=c0,
+                                                col0=c0)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+# cuSOLVER's potrf reads the lower triangle of each diagonal tile: garbage
+# above it changes nothing (the JAX package's mirror_diag has no counterpart)
+def test_region_factorization_reads_the_lower_triangle_on_the_card(card):
+    from friedrich_tpu_torch.ops.tiled import region_cholesky_inplace
+
+    rng = np.random.default_rng(78)
+    x = torch.as_tensor(rng.normal(size=(768, 4)), device=card)
+    k = cov.train_covariance_padded(KERNELS["Matern1"].to(torch.float64, card), x, 700, 0.3)
+    want = torch.linalg.cholesky(k)
+    m = torch.tril(k) + torch.triu(torch.full_like(k, 7.0), 1)
+    region_cholesky_inplace(m, 0, 3, 256, None)
+    torch.testing.assert_close(torch.tril(m), want, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("backend", ("tiled", "hybrid"))
+def test_tiled_and_hybrid_factors_on_the_card_match_the_cpu(card, backend):
+    from friedrich_tpu_torch.ops.hybrid import hybrid_cholesky_factor
+    from friedrich_tpu_torch.ops.tiled import tiled_cholesky_factor
+
+    fn = tiled_cholesky_factor if backend == "tiled" else hybrid_cholesky_factor
+    rng = np.random.default_rng(79)
+    x = rng.normal(size=(1002, 4))
+    kern = KERNELS["Composite"]
+    b1, b2 = cc.LAUNCHES, pc.LAUNCHES
+    got, ok = fn(kern.to(torch.float64, card), torch.as_tensor(x, device=card), 950, 0.3, block=167)
+    assert cc.LAUNCHES > b1 and (pc.LAUNCHES > b2) == (backend == "hybrid")
+    want, want_ok = fn(kern.to(torch.float64, "cpu"), torch.as_tensor(x), 950, 0.3, block=167)
+    assert bool(ok) and bool(want_ok)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+
+
+# With block, a query's mean and variance do not depend on the other
+# queries of the call (models/gp.sweep_moments): what lets
+# AcceleratedGPServer merge requests and still answer each as a call of its
+# own rows would
+@pytest.mark.parametrize("backend", ("dense", "tiled"))
+def test_predictions_are_batch_invariant_on_the_card(card, backend):
+    import friedrich_tpu_torch as ft
+
+    rng = np.random.default_rng(81)
+    x = rng.normal(size=(3000, 4)).astype(np.float32)
+    y = np.sin(x[:, 0]).astype(np.float32)
+    gp = ft.GaussianProcess.new(ft.priors.ConstantPrior(0.2), KERNELS["Matern1"], 0.1, None, x, y,
+                                dtype="float32", backend=backend, device=card)
+    xq = torch.as_tensor(rng.normal(size=(700, 4)), dtype=torch.float32, device=card)
+    mean, var = gp.predict_mean_variance(xq, block=256)
+    for lo, hi in ((0, 1), (3, 40), (250, 700), (255, 257)):
+        m, v = gp.predict_mean_variance(xq[lo:hi], block=256)
+        assert torch.equal(m, mean[lo:hi]) and torch.equal(v, var[lo:hi])

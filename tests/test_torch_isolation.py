@@ -43,6 +43,9 @@ def test_package_imports_with_jax_blocked():
         "import friedrich_tpu_torch.utils.fitlog\n"
         "import friedrich_tpu_torch.ops.blocked_solve, friedrich_tpu_torch.ops.outofcore\n"
         "import friedrich_tpu_torch.models.outofcore_gp\n"
+        "import friedrich_tpu_torch.ops.tiled, friedrich_tpu_torch.ops.hybrid\n"
+        "import friedrich_tpu_torch.serving, friedrich_tpu_torch.native\n"
+        "import friedrich_tpu_torch.utils.profiling, friedrich_tpu_torch.utils.debugging\n"
         "from friedrich_tpu_torch import OutOfCoreGP\n"
         "from friedrich_tpu_torch.mcmc import sample_hyperparameters\n"
         "print('ok')\n"

@@ -150,10 +150,11 @@ def test_streamed_state_with_a_block_round_trips(tmp_path, block):
                                atol=TOL_CROSS)
 
 
-# bf16 storage and a factor precision are ported: a header carrying them
-# loads (under "bf16" storage, a streamed-backend knob, the factor is read
-# as bfloat16 bits, so the case stores the factor's bits as the JAX package
-# writes them); a tiled backend still raises.
+# bf16 storage, a factor precision and the tiled backend are ported: a
+# header carrying them loads (under "bf16" storage, a streamed-backend knob,
+# the factor is read as bfloat16 bits, so the case stores the factor's bits
+# as the JAX package writes them); a tiled model loads in both packages,
+# predicts as the saved one and rebuilds through its backend.
 @pytest.mark.parametrize("header", ({"storage": "bf16"}, {"precision": "f32"}, {"backend": "tiled"}),
                          ids=("bf16-storage", "precision", "tiled"))
 def test_headers_of_paths_not_yet_ported_raise(tmp_path, header):
@@ -172,8 +173,18 @@ def test_headers_of_paths_not_yet_ported_raise(tmp_path, header):
         arrays["l"] = bits.view(torch.int16).numpy().view(np.uint16)
     np.savez(tmp_path / "edited.npz", **arrays)
     if "backend" in header:
-        with pytest.raises(tft.ConfigError, match="not yet ported to friedrich_tpu_torch"):
-            tft.GaussianProcess.load(tmp_path / "edited.npz")
+        loaded = tft.GaussianProcess.load(tmp_path / "edited.npz")
+        assert loaded.state.backend == "tiled"
+        xq = _data()[2]
+        assert torch.equal(loaded.predict(torch.as_tensor(xq)), gp.predict(torch.as_tensor(xq)))
+        jloaded = jft.GaussianProcess.load(str(tmp_path / "edited.npz"))
+        assert jloaded.state.backend == "tiled"
+        np.testing.assert_allclose(loaded.predict(xq), np.asarray(jloaded.predict(xq)),
+                                   rtol=TOL_CROSS, atol=TOL_CROSS)
+        # a rebuild goes through the tiled backend: the same factor
+        before = loaded.state.l.clone()
+        loaded.set_hyperparameters(noise=float(loaded.state.noise))
+        np.testing.assert_allclose(loaded.state.l.numpy(), before.numpy(), rtol=1e-9, atol=1e-12)
         return
     loaded = tft.GaussianProcess.load(tmp_path / "edited.npz")
     assert (loaded.state.storage, loaded.state.precision) == (meta["storage"], meta["precision"])

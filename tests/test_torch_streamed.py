@@ -371,7 +371,7 @@ def test_auto_backend_rule(monkeypatch):
 
 # Each case raised "not yet ported"; now the knob runs on float32 inputs and
 # refuses float64 ones with the JAX package's error for bf16 storage, and
-# the tiled backend still raises.
+# the tiled backend trains the dense backend's factor.
 @pytest.mark.parametrize("call,match", [
     (lambda x: streamed_cholesky_factor(tk.SquaredExp(), x, 4, 0.1, storage="bf16"), "float32 inputs"),
     (lambda x: streamed_cholesky_factor(tk.SquaredExp(), x.float(), 4, 0.1, block=2,
@@ -382,8 +382,10 @@ def test_auto_backend_rule(monkeypatch):
                           tft.GaussianProcessBuilder), None),
     (lambda x: tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.1, None, x, x[:, 0],
                                        backend="streamed", storage="bf16"), "float32 inputs"),
-    (lambda x: tft.GaussianProcessBuilder(x, x[:, 0]).set_backend("tiled"),
-     "not yet ported to friedrich_tpu_torch"),
+    (lambda x: torch.allclose(
+        tft.GaussianProcessBuilder(x, x[:, 0]).set_backend("tiled").set_noise(0.5).train().state.l,
+        tft.GaussianProcessBuilder(x, x[:, 0]).set_noise(0.5).train().state.l, rtol=1e-12,
+        atol=1e-14), None),
 ], ids=["storage", "precision", "builder-storage", "builder-precision", "new-storage", "tiled"])
 def test_streamed_knobs_not_ported_raise(call, match):
     x = torch.arange(8, dtype=torch.float64).reshape(4, 2)

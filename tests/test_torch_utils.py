@@ -1,0 +1,120 @@
+"""The port's profiling and debugging utilities against the JAX package's
+(``tests/test_misc.py:57-80``): the timer and the named scopes (which the
+profiler sums under the JAX package's scope names), the Chrome trace, NaN
+trapping and the checksum."""
+
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+import friedrich_tpu_torch as tft
+import friedrich_tpu_torch.kernels as tk
+import friedrich_tpu_torch.priors as tp
+from friedrich_tpu.utils.debugging import checksum as j_checksum
+from friedrich_tpu_torch import config
+from friedrich_tpu_torch.utils import debugging, profiling
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu_in_f64():
+    config.enable_x64()
+    config.set_device("cpu")
+    yield
+
+
+def test_profiling_utils_smoke():
+    log = []
+    with profiling.timed("scope", log):
+        with profiling.annotate("trace-scope"):
+            torch.ones(4).sum()
+    assert log and log[0][0] == "scope" and log[0][1] >= 0
+    with profiling.timed("unlogged"):  # no log: nothing to append
+        pass
+    assert len(log) == 1
+
+
+def _scope_names(prof):
+    return {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.parametrize("backend", ["dense", "streamed", "tiled", "hybrid"])
+def test_scopes_carry_the_jax_names(backend):
+    x = np.random.default_rng(0).normal(size=(32, 2))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        gp = tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.3, None, x, x[:, 0],
+                                     backend=backend)
+        gp.predict_mean_variance(x[:4])
+        gp.fit_parameters(max_iter=1)
+    names = _scope_names(prof)
+    assert {f"gp/build_factor[{backend}]", "gp/derive_weights", "gp/predict_mean_variance",
+            "fit/gradients", "fit/adam", "fit/rebuild"} <= names
+    if backend in ("tiled", "hybrid"):
+        parts = {"tiled": {"tiled/covariance", "tiled/factor"},
+                 "hybrid": {"hybrid/leaf", "hybrid/l21", "hybrid/s22", "hybrid/l22"}}[backend]
+        assert parts <= names
+
+
+def test_trace_is_written(tmp_path):
+    profiling.start_trace(str(tmp_path / "trace"))
+    with pytest.raises(RuntimeError, match="already running"):
+        profiling.start_trace(str(tmp_path / "other"))
+    with profiling.scope("gp/predict_mean"):
+        torch.ones(8).cumsum(0)
+    prof = profiling.stop_trace()
+    assert "gp/predict_mean" in _scope_names(prof)
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert any(ev.get("name") == "gp/predict_mean" for ev in trace["traceEvents"])
+    with pytest.raises(RuntimeError, match="no trace"):
+        profiling.stop_trace()
+
+
+def test_debugging_utils():
+    with debugging.debug_nans(False):
+        pass
+    tree = {"a": np.ones((3,)), "b": 2.0}
+    assert debugging.checksum({"a": torch.ones((3,)), "b": torch.tensor(2.0)}) == 5.0
+    assert debugging.checksum(tree) == j_checksum({"a": jnp.ones((3,)), "b": jnp.asarray(2.0)}) == 5.0
+
+
+def test_checksum_matches_jax_on_mixed_trees():
+    rng = np.random.default_rng(4)
+    arrays = [rng.normal(size=(5, 3)), rng.integers(-4, 4, size=7), np.float64(-2.5)]
+    want = j_checksum({"x": [jnp.asarray(a) for a in arrays], "flag": jnp.asarray([True, False])})
+    got = debugging.checksum({"x": [torch.as_tensor(a) for a in arrays],
+                              "flag": torch.tensor([True, False])})
+    assert got == pytest.approx(want, rel=1e-15)
+    # a dataclass (the port's GPState) digests its numeric fields, the
+    # kernel's parameters among them, as the JAX package's pytree leaves
+    gp = tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.3, None, arrays[0], arrays[0][:, 0])
+    s = gp.state
+    fields = float(sum(t.abs().sum() for t in (s.x, s.resid, s.l, s.noise, s.kernel.get_params())))
+    fields += s.n
+    assert debugging.checksum(s) == pytest.approx(fields, rel=1e-12)
+
+
+def test_debug_nans_raises_and_restores_the_mode():
+    assert _get_current_dispatch_mode() is None
+    with debugging.debug_nans():
+        torch.ones(3).log()  # finite: no trap
+        with pytest.raises(FloatingPointError, match="NaN"):
+            torch.tensor([-1.0]).sqrt()
+        with debugging.debug_nans(False):
+            assert bool(torch.isnan(torch.tensor([-1.0]).sqrt()).all())  # trap off inside
+        with pytest.raises(FloatingPointError):
+            torch.zeros(2) / torch.zeros(2)  # back on after the inner scope
+    assert _get_current_dispatch_mode() is None
+    assert bool(torch.isnan(torch.tensor([-1.0]).sqrt()).all())  # off after the scope
+
+
+def test_debug_nans_traps_a_nan_from_a_model_operation():
+    x = np.random.default_rng(1).normal(size=(8, 2))
+    gp = tft.GaussianProcess.new(tp.ZeroPrior(), tk.SquaredExp(), 0.3, None, x, x[:, 0])
+    gp.predict(x[:2])
+    with debugging.debug_nans():
+        gp.predict(x[:2])  # a finite path runs under the trap
+        with pytest.raises(FloatingPointError):
+            gp.predict(np.full((2, 2), np.nan))
