@@ -145,20 +145,35 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    three panels of that region (rows ending at h = 50,256), and B1 on the
    first S22 strip; the downdates of L21's last strip and S22's first, as
    one product and panel by panel, against float64; (9e) a float64 dense
-   model of the first 50,000 points (capacity 50,512) as the witness of the
-   float32 streamed, tiled and hybrid models of the same points, the tiled
+   model of the first 50,000 points (capacity 50,512) as the witness of a
+   float64 streamed model of the same points (B2's float64 instantiation),
+   whose means and variances must lie within rtol 1e-10, atol 1e-10 of it,
+   and of the float32 streamed, tiled and hybrid models, the tiled
    and hybrid models' means and variances no further from it than the
    streamed model's + 1e-3; (9d) the native daemon (``GPServer``, CPU float64) on a
    bundle the port exported from a model of the first 8,192 points, asked
    256 rows over 8 connections, within 5e-4 of the card's predictions; last,
    B2's explicit bf16 prefix at 8c's middle panel and its float64
    instantiation at a 4,096 density factor's middle panel, each against its
-   plain version, its bound and ``torch.addmm``.
+   plain version, its bound and ``torch.addmm``; B1 at 9c's merged batch
+   (cross 100,512 x 1,024) beside its bound and plain version.
+10. the float64 flow: ``bench.py``'s data at n=70,000 (capacity 70,512,
+   a 39.8 GB float64 factor, two of which do not fit the card) through the
+   builder with ``set_dtype("float64")``, noise 1.0, ``backend="auto"``
+   (which must resolve to "streamed") and the "auto" sub-fit (14,000
+   points), then predict 4,096 queries, append 512 points in place and
+   sample 64; B2's float64 instantiation (``mma.sync`` on the FP64 tensor
+   cores) must launch once per panel and no other instantiation; the peak
+   below 1.15 factors, the fitted LML above the heuristic start's,
+   variances >= -1e-4; B2 against its plain version on three panels of the
+   final factor and timed at the middle one beside its bound, its plain
+   version and one float64 ``torch.addmm``; B1 at the flow's float64
+   shapes; a ``torch.profiler`` breakdown of one float64 build.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 JSON line describing each kernel, and ``{"ok": true, "device": ...}``.
-``--n`` and ``--streamed-n`` shrink the full-width phases (4 and 5b; 5c,
-5d, 6a, 6b, 8b and 9) for a quick check.
+``--n``, ``--streamed-n`` and ``--f64-n`` shrink the full-width phases (4
+and 5b; 5c, 5d, 6a, 6b, 8b and 9; 10) for a quick check.
 """
 
 from __future__ import annotations
@@ -176,11 +191,14 @@ import time
 
 import numpy as np
 
-#: Published H100 SXM rates used for the bound (NVIDIA data sheet).
+#: Published H100 SXM rates used for the bound (NVIDIA data sheet): float64
+#: on the tensor cores and on the CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+FP64_FLOPS = 67e12
+FP64_SIMT_FLOPS = 34e12
 
 #: Tolerances of the kernel against its plain version, held as
 #: ``|got - want| <= atol + rtol * |want|``. float64: the two differ only
@@ -281,7 +299,7 @@ def ptxas_table(report: str) -> dict:
             entry = f"cov_kernel<{dtypes[m.group(1)]},{methods[m.group(2)]},{maps[m.group(3)]}>"
             spill = 0
             continue
-        m = re.search(r"Compiling entry function '\w*?\d+(panel_strip_kernel|panel_strip_tf32x3_kernel|"
+        m = re.search(r"Compiling entry function '\w*?\d+(panel_strip_f64_kernel|panel_strip_tf32x3_kernel|"
                       r"panel_strip_ws_kernel)I(\w*?)EEv", line)
         if m:
             raw = m.group(2)
@@ -336,7 +354,8 @@ def phase_environment() -> None:
         f"spill stores (bytes) {spills}")
     log(json.dumps({"ptxas": per_kernel}))
     spilled = [k for k, v in per_kernel.items()
-               if k.startswith(("cov_kernel", "panel_strip_ws_kernel")) and v["spill_stores"]]
+               if k.startswith(("cov_kernel", "panel_strip_ws_kernel", "panel_strip_f64_kernel"))
+               and v["spill_stores"]]
     if spilled:
         fail(f"kernel instantiations spill: {spilled}")
     # the ws kernel's setmaxnreg split (2 x 128 x 232 + 128 x 40, or 224 and
@@ -529,7 +548,8 @@ def shape_time(label: str, kernel, x1, x2, n: int, train: bool, noise, by_shape)
     ms = launch_ms(lambda: covariance_cuda.covariance(kernel, x1, x2, n, noise, train=train))
     torch.cuda.empty_cache()
     map_ops = MAP_OPS["Composite" if label.startswith("Composite") else "SquaredExp"]
-    bound, by = bound_ms(m1, m2, x1.shape[1], x1.element_size(), FP32_FLOPS, map_ops)
+    rate = FP64_SIMT_FLOPS if x1.dtype == torch.float64 else FP32_FLOPS
+    bound, by = bound_ms(m1, m2, x1.shape[1], x1.element_size(), rate, map_ops)
     return {"shape": label, "ms": ms, "bound_ms": bound, "bound_by": by, "ms_over_bound": ms / bound,
             "launches_on_flow": 0 if label.startswith("Composite") else by_shape.get((m1, m2, train), 0)}
 
@@ -759,10 +779,10 @@ def strip_excess(got, want, prefix, block: int, atol: float, rtol: float, unit: 
 def check_panels(kernel, x_pad, n_live: int, noise, l_full, widths, where: str,
                  precision=None, end=None) -> float:
     """B2 against its plain version on the first, middle and last panels
-    of the factor ``l_full`` (panel widths ``widths``; float32, or bfloat16
-    for the bf16-prefix instantiation; ``precision="bf16"`` for the single
-    pass), each within :func:`strip_excess`'s tolerance; returns the
-    largest error. ``end``: the strips' rows end there (the hybrid
+    of the factor ``l_full`` (panel widths ``widths``; float32, bfloat16
+    for the bf16-prefix instantiation, or float64; ``precision="bf16"`` for
+    the single pass), each within :func:`strip_excess`'s tolerance; returns
+    the largest error. ``end``: the strips' rows end there (the hybrid
     factorization's leading region, whose panels ``widths`` cover)."""
     import torch
 
@@ -771,19 +791,21 @@ def check_panels(kernel, x_pad, n_live: int, noise, l_full, widths, where: str,
 
     kind = panel_strip_cuda.variant(x_pad.dtype, l_full.dtype, precision)
     split = panel_strip_cuda.SPLIT_ERROR if kind == "tf32x3" else 0.0
+    f64 = kind == "f64"
+    atol, rtol, unit = (ATOL_F64, RTOL_F64, UNIT_ROUNDOFF["float64"]) if f64 else (
+        ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"])
     starts = np.cumsum((0,) + tuple(widths[:-1]))
     max_err = 0.0
     for p in (0, len(widths) // 2, len(widths) - 1):
         j0, block = int(starts[p]), widths[p]
         args = (kernel, x_pad[j0:end], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
         got = panel_strip_cuda.panel_strip(*args, precision=precision, end=end)
-        if kind == "tf32x3":
+        if kind in ("tf32x3", "f64"):
             want = plain_panel_strip(*args, end=end)
         else:
             want = plain_strip_chunked(*args, precision=precision)
         err = float((got - want).abs().max())
-        over = strip_excess(got, want, l_full[j0:end, :j0], block, ATOL_F32, RTOL_F32,
-                            UNIT_ROUNDOFF["float32"], split)
+        over = strip_excess(got, want, l_full[j0:end, :j0], block, atol, rtol, unit, split)
         log(f"{where}, panel {p} [{j0}, {j0 + block}): max error {err}, excess over its tolerance {over}")
         max_err = max(max_err, err)
         if not over <= 0:
@@ -797,14 +819,17 @@ def check_panels(kernel, x_pad, n_live: int, noise, l_full, widths, where: str,
 def strip_bound_ms(rest: int, block: int, j0: int, d: int, itemsize: int,
                    downdate_flops: float, prefix_itemsize: int | None = None) -> tuple[float, str]:
     """Least time for one panel strip: the downdate's 2 rest B j0 operations
-    at ``downdate_flops`` and (2d + 9) per entry for the map at the float32
-    rate, against the prefix blocks (``prefix_itemsize`` bytes an entry,
-    default ``itemsize``), the inputs and the strip moved once over HBM. The
-    float32 kernel's downdate is three TF32 products: pass TF32_FLOPS / 3
-    for its tensor-core bound, FP32_FLOPS for the SIMT one; the single pass
-    and the bfloat16 prefix BF16_FLOPS (one product of bfloat16 operands,
-    exact in float32: the least time for the same products)."""
-    t_ops = (2 * rest * block * j0 / downdate_flops + (2 * d + 9) * rest * block / FP32_FLOPS) * 1e3
+    at ``downdate_flops`` and (2d + 9) per entry for the map at the CUDA
+    cores' rate for the dtype, against the prefix blocks
+    (``prefix_itemsize`` bytes an entry, default ``itemsize``), the inputs
+    and the strip moved once over HBM. The float32 kernel's downdate is
+    three TF32 products: pass TF32_FLOPS / 3 for its tensor-core bound,
+    FP32_FLOPS for the SIMT one; the single pass and the bfloat16 prefix
+    BF16_FLOPS (one product of bfloat16 operands, exact in float32: the
+    least time for the same products); float64 FP64_FLOPS (the tensor
+    cores)."""
+    map_flops = FP64_SIMT_FLOPS if itemsize == 8 else FP32_FLOPS
+    t_ops = (2 * rest * block * j0 / downdate_flops + (2 * d + 9) * rest * block / map_flops) * 1e3
     pitem = itemsize if prefix_itemsize is None else prefix_itemsize
     nbytes = (rest * j0 + block * j0) * pitem + (rest * block + (rest + block) * d) * itemsize
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2631,7 +2656,10 @@ def panel_times(errors: bool) -> dict:
     on the main path (the bf16 prefix at j0 = 75,256, B = 1,636 of capacity
     150,512; the single pass and 3xTF32 at j0 = 50,256, B = 1,396 of
     100,512) beside one ``torch.addmm`` of the same downdate, and 8c's
-    middle panel (an explicit bf16 prefix 8,192 wide); every panel of a bf16
+    middle panel (an explicit bf16 prefix 8,192 wide); float64's middle
+    panels at 4,096 (j0 = B = 2,048) and 70,512 (j0 = 34,352, B = 1,808)
+    beside one float64 ``torch.addmm``, and one float64 streamed build at
+    70,512 (phase 10's data) under ``torch.profiler``; every panel of a bf16
     factor at 100,512 (8b's bf16 storage: the kernel alone, panel by
     panel), and of one at 150,512 (8a's); the middle panels of bf16 factors
     at ``SWEEP_CAPACITIES``; the explicit bf16 prefix at ``SWEEP_KDIMS`` on ``SWEEP_ROWS``
@@ -2684,6 +2712,31 @@ def panel_times(errors: bool) -> dict:
         torch.cuda.empty_cache()
         del x
         torch.cuda.empty_cache()
+    # float64: the middle panels at 4,096 (6c's density factor) and 70,512
+    # (phase 10) beside one float64 torch.addmm, then one float64 streamed
+    # build at 70,512 on bench.py's data (SquaredExp(1, 1), noise 1)
+    kern64 = kern.to(torch.float64, "cpu")
+    for cap in (4096, F64_N + K_ADD):
+        widths = panel_widths(cap)
+        j0, b = int(np.sum(widths[:len(widths) // 2])), widths[len(widths) // 2]
+        x = torch.randn((cap, D), device="cuda", generator=g, dtype=torch.float64)
+        lmat = torch.empty((cap, cap), dtype=torch.float64, device="cuda")
+        lmat[j0:, :j0].normal_(0, 0.01, generator=g)
+        k_strip = plain_train_covariance_block(kern64.to(torch.float64, "cuda"), x[j0:], x[j0:j0 + b],
+                                               cap - K_ADD, 1.0, row0=j0, col0=j0)
+        l_tail, l_rows = lmat[j0:, :j0], lmat[j0:j0 + b, :j0]
+        out["ms"][f"f64_middle_{cap}_j0_{j0}_B_{b}"] = cuda_ms(
+            lambda: pc.panel_strip(kern64, x[j0:], x[j0:j0 + b], lmat, cap - K_ADD, 1.0, j0, b))
+        out["ms"][f"f64_middle_{cap}_torch_addmm"] = cuda_ms(
+            lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1))
+        del k_strip, l_tail, l_rows, lmat, x
+        torch.cuda.empty_cache()
+    cap = F64_N + K_ADD
+    x_pad = torch.zeros((cap, D), dtype=torch.float64, device="cuda")
+    x_pad[:F64_N] = torch.as_tensor(bench_data(F64_N)[0], dtype=torch.float64, device="cuda")
+    out["build_f64_70512"] = profile_factor(kern64.to(torch.float64, "cuda"), x_pad, F64_N, 1.0)
+    del x_pad
+    torch.cuda.empty_cache()
     # every panel of a bf16 factor in place at 8b's and 8a's capacities
     for cap in (100_512, 150_512):
         x = torch.randn((cap, D), device="cuda", generator=g)
@@ -2782,8 +2835,6 @@ WITNESS_STRIP, WITNESS_STEPS, WITNESS_CHANGE = 4096, 10, 1e-6
 WITNESS_N = 50_000
 #: Prefixes of the named scopes (``utils/profiling.scope``) phase 9 splits the device time by.
 SCOPE_PREFIXES = ("gp/", "tiled/", "hybrid/", "fit/", "serving/")
-#: Published float64 tensor-core rate of an H100 SXM (NVIDIA data sheet).
-FP64_FLOPS = 67e12
 
 
 def profiled(fn):
@@ -3070,11 +3121,16 @@ def phase_float64_witness(fitted, n: int) -> dict:
     """9e: the float64 witness of the float32 backends. The first ``n``
     points of phase 9's data (capacity n + 512) at 6a's fitted
     hyperparameters: a float64 dense model (cuSOLVER's factor of the whole
-    matrix) and float32 streamed, tiled and hybrid models, each asked 9's
-    4,096 queries in one solve and at the server's solve width; each
-    float32 model's largest distance from the witness, the tiled and hybrid
-    models' gated at the streamed model's + 1e-3."""
+    matrix), then a float64 streamed model (B2's float64 instantiation),
+    whose means and variances at 9's 4,096 queries must lie within
+    F64_WITNESS_RTOL and F64_WITNESS_ATOL of the dense model's, and
+    float32 streamed, tiled and hybrid models, each asked the queries in
+    one solve and at the server's solve width; each float32 model's
+    largest distance from the witness, the tiled and hybrid models' gated
+    at the streamed model's + 1e-3."""
     import torch
+
+    from friedrich_tpu_torch.ops.partition import panel_widths
 
     x, y, xq = bench_data(2 * n)[:3]
     x, y = x[:n], y[:n]
@@ -3088,6 +3144,26 @@ def phase_float64_witness(fitted, n: int) -> dict:
     torch.cuda.empty_cache()
     out = {"capacity": cap, "witness_build_s": witness_s, "solve_width": SERVE_BLOCK,
            "tolerance": "the streamed model's error + 1e-3"}
+    # a float64 streamed model of the same points (B2's float64 instantiation)
+    reset_launches()
+    t0 = sync()
+    gp = phase9_build("streamed", fitted, x, y, cap, dtype="float64")
+    build_s = sync() - t0
+    s_mean, s_var = gp.predict_mean_variance(xq.astype(np.float64))
+    del gp
+    torch.cuda.empty_cache()
+    out["float64_streamed"] = {
+        "build_s": build_s, "panel_strip_launches_by_variant": variant_launches(),
+        "mean_max_abs_diff": float(np.abs(s_mean - w_mean).max()),
+        "var_max_abs_diff": float(np.abs(s_var - w_var).max()),
+        "tolerance": f"rtol {F64_WITNESS_RTOL}, atol {F64_WITNESS_ATOL}"}
+    log(json.dumps({"phase_9e_float64_streamed": out["float64_streamed"]}))
+    if not (np.allclose(s_mean, w_mean, rtol=F64_WITNESS_RTOL, atol=F64_WITNESS_ATOL)
+            and np.allclose(s_var, w_var, rtol=F64_WITNESS_RTOL, atol=F64_WITNESS_ATOL)):
+        fail(f"phase 9e: the float64 streamed model is not within rtol {F64_WITNESS_RTOL}, atol "
+             f"{F64_WITNESS_ATOL} of the float64 dense witness: {out['float64_streamed']}")
+    only_variant(out["float64_streamed"]["panel_strip_launches_by_variant"], "f64",
+                 len(panel_widths(cap)), "phase 9e's float64 streamed model (one launch per panel)")
     for backend in ("streamed", "tiled", "hybrid"):
         t0 = sync()
         gp = phase9_build(backend, fitted, x, y, cap)
@@ -3109,14 +3185,16 @@ def phase_float64_witness(fitted, n: int) -> dict:
     return out
 
 
-def phase_tiled_b1(fitted, n: int, by_shape: dict) -> dict:
+def phase_tiled_b1(fitted, n: int, by_shape: dict, served_launches: int) -> tuple[dict, dict]:
     """B1 at 9a's shape, the whole training covariance at capacity n + 512
     in one launch, beside its bound, its launches on 9a and its plain
     version on 4,096-row strips of the same matrix (the plain version of
-    the whole would not fit beside it)."""
+    the whole would not fit beside it); and at 9c's, the cross covariance
+    of a merged batch (timed at SERVE_MAX_ROWS rows, seed 9), beside its
+    bound, its plain version and 9c's launches (``served_launches``)."""
     import torch
 
-    from friedrich_tpu_torch.ops.covariance import plain_covariance_tile
+    from friedrich_tpu_torch.ops.covariance import plain_covariance_tile, plain_cross_covariance_train_padded
     from friedrich_tpu_torch.ops.cuda import covariance_cuda
 
     prior, kernel, noise = fitted
@@ -3137,10 +3215,21 @@ def phase_tiled_b1(fitted, n: int, by_shape: dict) -> dict:
     row["plain_ms"] = cuda_ms(lambda: plain_covariance_tile(kernel, x_pad[:4096], x_pad, n, noise,
                                                             train=True))
     row["plain_ms_is_of"] = "one 4,096-row strip"
-    del x_pad
+    q = torch.as_tensor(np.random.default_rng(9).normal(size=(SERVE_MAX_ROWS, D)), dtype=torch.float32,
+                        device="cuda")
+    merged = shape_time(f"cross {cap} x {SERVE_MAX_ROWS} (9c: one merged batch)", kernel, x_pad, q, n,
+                        False, 0.0, {})
+    merged["launches_on_flow"] = served_launches
+    got = covariance_cuda.covariance(kernel, x_pad, q, n)
+    want = plain_cross_covariance_train_padded(kernel, x_pad, n, q)
+    merged["max_abs_err"] = float((got - want).abs().max())
+    if not excess(got, want, ATOL_F32, RTOL_F32) <= 0:
+        fail(f"phase 9c: the covariance kernel differs from its plain version at {merged['shape']}")
+    merged["plain_ms"] = cuda_ms(lambda: plain_cross_covariance_train_padded(kernel, x_pad, n, q))
+    del x_pad, q, got, want
     torch.cuda.empty_cache()
-    log(json.dumps({"covariance_tile_times": [row]}))
-    return row
+    log(json.dumps({"covariance_tile_times": [row, merged]}))
+    return row, merged
 
 
 def phase_serving(gp) -> dict:
@@ -3374,7 +3463,7 @@ def phase_b2_other_rows(explicit_launches: int, f64_launches: int) -> tuple[dict
         "plain_ms": cuda_ms(lambda: plain_panel_strip(*args)), "bound_ms": bound, "bound_by": by,
         "library_ms": cuda_ms(lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1)),
         "library_call": "torch.addmm(k_strip, L[j0:, :j0], L[j0:j0+B, :j0].T, alpha=-1), float64",
-        "bound": "float64 tensor cores at 67 TFLOP/s (the kernel is a SIMT loop on the CUDA cores)",
+        "bound": "float64 tensor cores at 67 TFLOP/s",
         "shape": f"panel j0={j0} B={block} of a float64 streamed factor at capacity {cap64}",
     }
     del l_full, k_strip, got, want
@@ -3383,12 +3472,205 @@ def phase_b2_other_rows(explicit_launches: int, f64_launches: int) -> tuple[dict
     return explicit, f64
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the float64 flow at n = 70,000
+# ---------------------------------------------------------------------------
+
+#: Training points of phase 10 (capacity 70,512): a float64 factor of
+#: 39,775,537,152 B, two of which pass 0.85 of an 80 GB card, so that
+#: ``backend="auto"`` resolves to "streamed" and B2's float64 instantiation
+#: runs every panel.
+F64_N = 70_000
+#: Peak device memory of phase 10's flow, in factors (PERF_FACTORS_9's limit).
+PEAK_FACTORS_10 = 1.15
+#: The float64 streamed model of 9e's points against 9e's float64 dense
+#: witness: the tolerance tests/test_torch_streamed.py holds float64 factors to.
+F64_WITNESS_RTOL, F64_WITNESS_ATOL = 1e-10, 1e-10
+
+
+def phase_float64_flow(n: int) -> dict:
+    """10: the builder's flow in float64 on ``bench.py``'s data at ``n``
+    points (capacity n + 512): ``set_dtype("float64")``, noise 1.0,
+    ``backend="auto"`` (which must resolve to "streamed"), the "auto"
+    sub-fit, then a 4,096-query ``predict_in_batches``, a 512-point
+    ``add_samples`` (in place) and ``sample_at`` 64 points; both kernels'
+    launches counted over that run, B2's float64 instantiation only and one
+    launch per panel of the build. Gates: the peak below PEAK_FACTORS_10
+    factors, the fitted LML above the heuristic start's, variances >= -1e-4,
+    B2 against its plain version on three panels of the final factor. Then
+    B2 at the middle panel beside its bound, its plain version and one
+    float64 ``torch.addmm`` of the downdate; B1 at the flow's float64
+    shapes; a ``torch.profiler`` breakdown of one float64 build."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+    from friedrich_tpu_torch.models.gp import resolve_backend
+    from friedrich_tpu_torch.models.optimizer import auto_subsample, subset_indices
+    from friedrich_tpu_torch.ops.covariance import (
+        plain_cross_covariance_train_padded,
+        plain_train_covariance_block,
+        plain_train_covariance_padded,
+    )
+    from friedrich_tpu_torch.ops.cuda import covariance_cuda, panel_strip_cuda
+    from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
+    from friedrich_tpu_torch.ops.partition import panel_widths
+
+    cap = n + K_ADD
+    sub = auto_subsample(n)
+    f64 = torch.float64
+    log(f"== phase 10: the float64 flow, n={n}, capacity {cap}, backend 'auto', sub-fit 'auto' "
+        f"({sub} points), d=8")
+    resolved = resolve_backend("auto", cap, f64, torch.device("cuda"))
+    if resolved != "streamed":
+        fail(f"phase 10: backend='auto' resolves to {resolved!r} at capacity {cap} in float64")
+    x, y, xq, x_add, y_add, x_sample = (a.astype(np.float64) for a in bench_data(n))
+    xt, yt = torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda")
+    heur = ft.kernels.Gaussian().heuristic_fit(xt, yt)
+    gp0 = ft.GaussianProcess.new(ft.priors.ConstantPrior().fit(xt, yt), heur, 1.0, None, x, y,
+                                 dtype="float64", capacity=cap, backend="streamed", device="cuda")
+    lml0 = gp0.log_marginal_likelihood()
+    del gp0, xt, yt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path; both kernels' launches are counted over this run only
+    reset_launches()
+    t_start = sync()
+    builder = (
+        ft.GaussianProcessBuilder(x, y, device="cuda")
+        .set_noise(1.0).set_dtype("float64").set_capacity(cap).set_backend("auto")
+        .set_fit_parameters(100, 0.05).fit_kernel().fit_prior()
+    )
+    gp = builder.train()
+    lml = gp.log_marginal_likelihood()
+    t0 = sync()
+    mean, var = gp.predict_in_batches(xq, M_QUERIES)
+    t_predict = sync() - t0
+    t0 = sync()
+    gp.add_samples(x_add, y_add)
+    t_add = sync() - t0
+    t0 = sync()
+    draw = gp.sample_at(torch.as_tensor(x_sample, device="cuda")).sample(
+        torch.Generator(device="cuda").manual_seed(0))
+    t_sample = sync() - t0
+    t_total = sync() - t_start
+    b1_launches, b1_by_shape, b2_launches = read_launches()
+    by_variant = variant_launches()
+    # ---- end of the main path
+
+    peak = torch.cuda.max_memory_allocated()
+    factor_bytes = cap * cap * 8
+    widths = panel_widths(cap, gp.state.block)
+    t = builder.timings
+    steps = {
+        "timings": t, "subfit_points": sub, "predict_in_batches_s": t_predict, "add_samples_s": t_add,
+        "sample_at_s": t_sample, "total_s": t_total, "peak_bytes": peak,
+        "peak_factors": peak / factor_bytes, "factor_bytes": factor_bytes, "panels": len(widths),
+        "panel_strip_launches_by_variant": by_variant, "covariance_tile_launches": b1_launches,
+        "covariance_tile_launches_by_shape": {f"{k[0]}x{k[1]}{' train' if k[2] else ''}": v
+                                              for k, v in b1_by_shape.items()},
+        "lml_start": lml0, "lml_fitted": lml, "ls": float(gp.kernel.ls), "ampl": float(gp.kernel.ampl),
+        "noise": gp.noise, "var_min": float(var.min()), "mean_abs_max": float(mean.abs().max()),
+    }
+    log(json.dumps({"phase_10_steps": steps}))
+    if gp.state.backend != "auto" or mean.dtype != f64:
+        fail(f"phase 10: the model's backend is {gp.state.backend!r} and its dtype {mean.dtype}")
+    only_variant(by_variant, "f64", len(widths), "phase 10 (one float64 launch per panel of the build)")
+    if b1_launches <= 0:
+        fail("phase 10 never launched the covariance kernel")
+    if mean.shape != (M_QUERIES,) or var.shape != (M_QUERIES,) or draw.shape != (M_SAMPLE,):
+        fail(f"phase 10: unexpected shapes {tuple(mean.shape)} {tuple(var.shape)} {tuple(draw.shape)}")
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+            and bool(torch.isfinite(draw).all())):
+        fail("phase 10: non-finite predictions or draws")
+    if float(var.min()) < -1e-4:
+        fail(f"phase 10: negative predictive variance {float(var.min())}")
+    if not lml > lml0:
+        fail(f"phase 10: the fitted LML {lml} does not exceed the heuristic start's {lml0}")
+    if gp.num_samples != cap:
+        fail(f"phase 10: add_samples left {gp.num_samples} samples, expected {cap}")
+    if not peak < PEAK_FACTORS_10 * factor_bytes:
+        fail(f"phase 10: peak device memory {peak} B is not below {PEAK_FACTORS_10} factors "
+             f"({factor_bytes} B each)")
+
+    # ---- B2 against its plain version on three panels of the final factor,
+    # then timed at the middle one
+    state = gp.state
+    kernel, noise, n_live, x_pad, l_full = state.kernel, state.noise, state.n, state.x, state.l
+    fitted = (gp.prior, kernel.to(f64, "cpu"), noise)
+    del gp, state, mean, var, draw, builder
+    torch.cuda.empty_cache()
+    max_err = check_panels(kernel, x_pad, n_live, noise, l_full, widths, f"phase 10, capacity {cap}")
+    starts = np.cumsum((0,) + tuple(widths[:-1]))
+    p = len(widths) // 2
+    j0, block = int(starts[p]), widths[p]
+    rest = cap - j0
+    args = (kernel.to(f64, "cpu"), x_pad[j0:], x_pad[j0:j0 + block], l_full, n_live, noise, j0, block)
+    k_strip = plain_train_covariance_block(kernel, x_pad[j0:], x_pad[j0:j0 + block], n_live, noise,
+                                           row0=j0, col0=j0)
+    l_tail, l_rows = l_full[j0:, :j0], l_full[j0:j0 + block, :j0]
+    times = {"kernel": [], "addmm": []}
+    for _ in range(2):  # kernel and yardstick in turns
+        times["kernel"].append(cuda_ms(lambda: panel_strip_cuda.panel_strip(*args), reps=3))
+        times["addmm"].append(cuda_ms(lambda: torch.addmm(k_strip, l_tail, l_rows.mT, alpha=-1), reps=3))
+    ms, library_ms = min(times["kernel"]), min(times["addmm"])
+    plain_ms = cuda_ms(lambda: plain_panel_strip(*args), reps=3)
+    bound, bound_by = strip_bound_ms(rest, block, j0, D, 8, FP64_FLOPS)
+    middle = {"shape": f"panel j0={j0} B={block} of capacity {cap}, rest {rest}, d={D}, float64",
+              "ms": ms, "kernel_runs_ms": times["kernel"], "plain_ms": plain_ms, "library_ms": library_ms,
+              "library_runs_ms": times["addmm"], "bound_ms": bound, "bound_by": bound_by,
+              "share_of_bound": bound / ms, "over_addmm": ms / library_ms,
+              "downdate_tflops": 2 * rest * block * j0 / ms / 1e9}
+    log(json.dumps({"phase_10_middle_panel": middle}))
+    del k_strip, l_tail, l_rows, args, l_full
+    torch.cuda.empty_cache()
+
+    # ---- B1 at the flow's float64 shapes, beside its bound and plain version
+    xq_t = torch.as_tensor(xq, device="cuda")
+    b1_cross = shape_time(f"cross {cap} x {M_QUERIES}, float64", kernel, x_pad, xq_t, n_live, False,
+                          noise, b1_by_shape)
+    b1_cross["plain_ms"] = cuda_ms(lambda: plain_cross_covariance_train_padded(kernel, x_pad, n_live,
+                                                                               xq_t))
+    got = covariance_cuda.covariance(kernel, x_pad, xq_t, n_live)
+    want = plain_cross_covariance_train_padded(kernel, x_pad, n_live, xq_t)
+    b1_cross["max_abs_err"] = float((got - want).abs().max())
+    if not excess(got, want, ATOL_F64, RTOL_F64) <= 0:
+        fail(f"phase 10: the covariance kernel differs from its plain version at {b1_cross['shape']}: "
+             f"max error {b1_cross['max_abs_err']}")
+    del got, want
+    size = sub or n  # the sub-fit's points ("auto": all of them below 24,576)
+    idx = subset_indices(n, size, 0, "cpu").numpy()
+    x_sub = torch.as_tensor(x[idx], device="cuda")
+    b1_sub = shape_time(f"train {size}^2, float64", kernel, x_sub, x_sub, size, True, noise,
+                        b1_by_shape)
+    b1_sub["plain_ms"] = cuda_ms(lambda: plain_train_covariance_padded(kernel, x_sub, size, noise))
+    del xq_t, x_sub
+    torch.cuda.empty_cache()
+    log(json.dumps({"covariance_tile_times": [b1_sub, b1_cross]}))
+
+    # ---- one float64 build at the fitted hyperparameters under torch.profiler
+    x_build = torch.zeros((cap, D), dtype=f64, device="cuda")
+    x_build[:n] = torch.as_tensor(x, device="cuda")
+    del x_pad
+    torch.cuda.empty_cache()
+    profile = profile_factor(kernel, x_build, n, noise)
+    if "panel_strip_device_s" in profile:
+        profile["panel_strip_share_of_device"] = profile["panel_strip_device_s"] / profile["device_busy_s"]
+    log(json.dumps({"phase_10_build_profile": profile}))
+    del x_build
+    torch.cuda.empty_cache()
+    return {"steps": steps, "fitted": fitted, "middle": middle, "max_abs_err": max_err,
+            "launches": by_variant["f64"], "b1": [b1_sub, b1_cross]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--n", type=int, default=50_000,
                         help="training points of the dense full-width phase (default 50,000)")
     parser.add_argument("--streamed-n", type=int, default=100_000,
                         help="training points of the streamed full-width phase and of 8b (default 100,000)")
+    parser.add_argument("--f64-n", type=int, default=F64_N,
+                        help="training points of the float64 flow, phase 10 (default 70,000)")
     parser.add_argument("--panel-times", action="store_true",
                         help="only time B2 at the main path's panels (panel_times) and exit")
     parser.add_argument("--errors", action="store_true",
@@ -3472,7 +3754,8 @@ def main() -> int:
     served = phase_serving(gp)
     del gp
     torch.cuda.empty_cache()
-    b1_tiled = phase_tiled_b1(fitted_6a, args.streamed_n, tiled["b1_by_shape"])
+    b1_tiled, b1_served = phase_tiled_b1(fitted_6a, args.streamed_n, tiled["b1_by_shape"],
+                                         served["covariance_tile_launches"])
     hybrid, gp = phase_tiled_hybrid("hybrid", fitted_6a, args.streamed_n, ref, tiled["witness"])
     del gp
     torch.cuda.empty_cache()
@@ -3480,15 +3763,34 @@ def main() -> int:
     phase_daemon(fitted_6a, args.streamed_n)
     f64_launches = sum(d["panel_strip_launches"] for d in map_fits["densities"]
                        if d["dtype"] == "float64" and d["density"] == "streamed")
-    explicit_entry, f64_entry = phase_b2_other_rows(ooc["bf16_n100k"]["panel_strip_launches"], f64_launches)
-    entry["shapes"] += [b1_tiled, hybrid["b1_s22"]]
-    entry["max_abs_err"] = max(entry["max_abs_err"], b1_tiled["max_abs_err"], hybrid["b1_s22"]["max_abs_err"])
+    explicit_entry, f64_density = phase_b2_other_rows(ooc["bf16_n100k"]["panel_strip_launches"],
+                                                      f64_launches)
+    entry["shapes"] += [b1_tiled, b1_served, hybrid["b1_s22"]]
+    entry["max_abs_err"] = max(entry["max_abs_err"], b1_tiled["max_abs_err"], b1_served["max_abs_err"],
+                               hybrid["b1_s22"]["max_abs_err"])
     entry["launches_9a_tiled"] = tiled["covariance_tile_launches"]
     entry["launches_9b_hybrid"] = hybrid["covariance_tile_launches"]
     entry["launches_9c_serving"] = served["covariance_tile_launches"]
     streamed_entry["launches_9b_hybrid"] = hybrid["panel_strip_launches"]
     streamed_entry["max_abs_err"] = max(streamed_entry["max_abs_err"], hybrid["leaf_panel_max_abs_err"])
     log(f"phase 9 took {time.perf_counter() - t9} s")
+    t10 = time.perf_counter()
+    flow_10 = phase_float64_flow(args.f64_n)
+    middle = flow_10["middle"]
+    f64_entry = {
+        "name": "panel_strip_f64", "route": "cuda", "source": "friedrich_tpu_torch/csrc/panel_strip.cu",
+        "replaces": "friedrich_tpu/ops/pallas/panel_fused.py:102", "launches": flow_10["launches"],
+        "max_abs_err": max(flow_10["max_abs_err"], f64_density["max_abs_err"]), "ms": middle["ms"],
+        "plain_ms": middle["plain_ms"], "bound_ms": middle["bound_ms"], "bound_by": middle["bound_by"],
+        "library_ms": middle["library_ms"],
+        "library_call": "torch.addmm(k_strip, L[j0:, :j0], L[j0:j0+B, :j0].T, alpha=-1), float64",
+        "bound": "float64 tensor cores at 67 TFLOP/s", "shape": middle["shape"],
+        "launches_6c": f64_density["launches"], "density_4096": f64_density,
+    }
+    entry["shapes"] += flow_10["b1"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], flow_10["b1"][1]["max_abs_err"])
+    entry["launches_10_float64"] = flow_10["steps"]["covariance_tile_launches"]
+    log(f"phase 10 took {time.perf_counter() - t10} s")
     log(smi_line())
     log(json.dumps({"kernels": [entry, streamed_entry, bf16_entry, one_pass_entry, explicit_entry,
                                 f64_entry]}))

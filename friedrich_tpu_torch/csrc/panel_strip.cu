@@ -1,5 +1,6 @@
 // C entry points of the panel-strip kernel (panel_strip.cuh) in float32
-// (3xTF32 on the tensor cores) and float64 (SIMT).
+// (3xTF32 on the tensor cores) and float64 (mma.sync on the FP64 tensor
+// cores).
 
 #include "panel_strip.cuh"
 
@@ -11,7 +12,8 @@ extern "C" {
 // the global indices of the first row and column. The float32 kernel reads
 // both operands through one map over `la`, so it takes `lb == la` (the
 // strip's columns are its first rows), as the streamed factorization
-// passes them. Returns the cudaError_t of the launch (0 on success).
+// passes them; so does the float64 kernel. Returns the cudaError_t of the
+// launch (0 on success).
 int friedrich_panel_strip_f32(const float* x1, const float* x2,
                               const float* la, const float* lb, float* out,
                               int m1, int m2, int d, long long ldl, int kdim,
@@ -28,8 +30,8 @@ int friedrich_panel_strip_f64(const double* x1, const double* x2,
                               long long row0, long long col0, long long n,
                               double noise, int method, int needs,
                               CovProgram prog, void* stream) {
-  return launch_simt<double>(x1, x2, la, lb, out, m1, m2, d, ldl, kdim, row0, col0, n,
-                             noise, method, needs, prog, static_cast<cudaStream_t>(stream));
+  return launch_f64(x1, x2, la, lb, out, m1, m2, d, ldl, kdim, row0, col0, n, noise, method,
+                    needs, prog, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

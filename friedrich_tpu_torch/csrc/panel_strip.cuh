@@ -24,10 +24,10 @@
 //
 // Accumulation. The tensor cores' own accumulation keeps fewer bits than
 // float32: on an H100, one accumulator chained through the whole
-// contraction gave errors growing as j0^2. So every tensor-core kernel here
-// sums a bounded run of products in a fresh tensor-core accumulator and
-// adds it into a float32 register accumulator on the CUDA cores (a
-// "promotion").
+// contraction gave errors growing as j0^2. So every float32 tensor-core
+// kernel here sums a bounded run of products in a fresh tensor-core
+// accumulator and adds it into a float32 register accumulator on the CUDA
+// cores (a "promotion").
 //
 // float32: 3xTF32 (panel_strip_tf32x3_kernel). The float32 SIMT rate (67
 // TFLOP/s) caps a CUDA-core loop well below cuBLAS; the tensor cores give
@@ -153,11 +153,38 @@
 // The epilogue is the 3xTF32 kernel's (store_strip), after the consumers
 // meet at a named barrier (the ring is then free).
 //
-// float64 keeps the SIMT design of the first version (off the main path,
-// whose factor is float32): one 256-thread block per 128 x 128 tile, an
-// 8 x 8 register tile per thread, the prefix read through the factor's row
-// stride in double-buffered 8-column slabs, transposed into shared memory.
-// A DMMA float64 design is later work.
+// float64 (panel_strip_f64_kernel) replaces the Pallas kernel above in
+// float64, the precision of the reference's f64 models and of the port's
+// parity mode. Bound: the FP64 tensor cores, 2 (cap - j0) B j0 / 67 TFLOP/s
+// on an H100 SXM (NVIDIA's data sheet; the CUDA cores give half that).
+// wgmma has no float64 form; the FP64 tensor cores are reached by the
+// warp-level mma.sync.m16n8k16.row.col.f64, each product an IEEE float64
+// FMA, the sums float64, so no promotion: only the summation order differs
+// from the plain version. Both operands are row blocks of the factor with
+// the contraction along a row, which is the instruction's row.col form as
+// they stand: no transpose. The design:
+// - One 256-thread block per 128 x 128 output tile, eight warps of 64 x 32
+//   (4 x 4 instructions of 16 x 8): 64 float64 accumulators, 128 registers,
+//   a thread (four warps would need 256). A 1-D grid, a row tile with all
+//   its column tiles, then the next, so that the blocks in flight share
+//   their A rows in L2.
+// - The feed: a ring of 3 stages of 64 KB, each two 128 x 16 boxes (one
+//   128-byte row each) per operand in the 128-byte swizzle, with a full
+//   mbarrier per slot. TMA (a float64 map, base and row stride 16-byte
+//   aligned) from thread 0, the map's extents zero-filling rows past the
+//   strip and columns past kdim (never read: a reused buffer holds an old
+//   factor there); elsewhere (an odd capacity, an explicit prefix of odd
+//   width) 8-byte cp.async from every thread into the same layout, zero
+//   filled there too. A slot is refilled, 3 stages ahead, after the block
+//   barrier at which every warp has read it.
+// - The fragments: the contraction's order is free, so the instruction's k
+//   index t + 4 j of thread t maps to box column 4 t + j in both operands:
+//   each fragment row is four consecutive doubles, two 16-byte shared loads
+//   that the swizzle keeps free of bank conflicts (ldmatrix moves 16-bit
+//   elements only). Per 16-deep box a warp loads 24 x 16 bytes a thread and
+//   issues 16 instructions.
+// - The epilogue: the accumulators go to shared memory and strip_from_tile
+//   computes the map, as in the float32 kernels.
 
 #include <cuda.h>  // CUtensorMap and its enums only; the encoder comes from cudart
 
@@ -232,178 +259,6 @@ __device__ __forceinline__ T covariance_entry(const T* __restrict__ xr,
   T v = run_program<T>(n_ops, sops, soffs, sprm, dot, sq, dist);
   if (diag) v += noise2;
   return v;
-}
-
-// covariance_entry, not inlined, so that an epilogue's unrolled loop over a
-// register tile holds one call per entry.
-template <typename T, int METHOD>
-__device__ __noinline__ T strip_entry(const T* __restrict__ xr,
-                                      const T* __restrict__ xc, int d,
-                                      long long gr, long long gc, long long n,
-                                      T noise2, int needs, int n_ops,
-                                      const int* sops, const int* soffs,
-                                      const T* sprm) {
-  return covariance_entry<T, METHOD>(xr, xc, d, gr, gc, n, noise2, needs, n_ops, sops, soffs,
-                                     sprm);
-}
-
-// ---------------------------------------------------------------------------
-// float64: SIMT FMA loop
-// ---------------------------------------------------------------------------
-
-constexpr int PBM = 128;               // rows of an output tile
-constexpr int PBN = 128;               // columns of an output tile
-constexpr int PTX = 16;                // threads along columns
-constexpr int PTY = 16;                // threads along rows
-constexpr int PRM = PBM / PTY;         // rows per thread (8)
-constexpr int PRN = PBN / PTX;         // columns per thread (8)
-constexpr int PTK = 8;                 // contraction slab
-constexpr int PPAD = 4;                // keeps the transposed stores conflict-free
-constexpr int NTHREADS = PTX * PTY;
-constexpr int A_LOADS = PBM * PTK / NTHREADS;  // slab elements per thread
-constexpr int B_LOADS = PBN * PTK / NTHREADS;
-
-static_assert(PRM == 8 && PRN == 8, "load8 reads eight consecutive values");
-
-__device__ __forceinline__ void load8(const double* p, double (&v)[8]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const double2 a = *reinterpret_cast<const double2*>(p + 2 * q);
-    v[2 * q] = a.x;
-    v[2 * q + 1] = a.y;
-  }
-}
-
-template <typename T, int METHOD>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    panel_strip_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-                       const T* __restrict__ la, const T* __restrict__ lb,
-                       T* __restrict__ out, int m1, int m2, int d,
-                       long long ldl, int kdim, long long row0, long long col0,
-                       long long n, T noise, int needs,
-                       const __grid_constant__ CovProgram prog) {
-  __shared__ __align__(16) T sa[2][PTK][PBM + PPAD];  // L[rows, k], transposed
-  __shared__ __align__(16) T sb[2][PTK][PBN + PPAD];  // L[cols, k], transposed
-  __shared__ T sprm[MAX_PARAMS];
-  __shared__ int sops[MAX_OPS];
-  __shared__ int soffs[MAX_OPS];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % PTX;
-  const int ty = tid / PTX;
-  const int rbase = blockIdx.y * PBM;
-  const int cbase = blockIdx.x * PBN;
-
-  if (tid < MAX_PARAMS) sprm[tid] = static_cast<T>(prog.params[tid]);
-  if (tid < MAX_OPS) {
-    sops[tid] = prog.ops[tid];
-    soffs[tid] = prog.offs[tid];
-  }
-
-  T acc[PRM][PRN];
-#pragma unroll
-  for (int i = 0; i < PRM; ++i)
-#pragma unroll
-    for (int j = 0; j < PRN; ++j) acc[i][j] = T(0);
-
-  // Slab loads: element e of a (rows x PTK) slab is row e / PTK, column
-  // e % PTK, so a warp reads 4 rows of 8 consecutive values.
-  T pa[A_LOADS], pb[B_LOADS];
-  auto load_slab = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < A_LOADS; ++q) {
-      const int e = tid + q * NTHREADS;
-      const int r = rbase + e / PTK, k = k0 + e % PTK;
-      pa[q] = (r < m1 && k < kdim) ? la[(long long)r * ldl + k] : T(0);
-    }
-#pragma unroll
-    for (int q = 0; q < B_LOADS; ++q) {
-      const int e = tid + q * NTHREADS;
-      const int c = cbase + e / PTK, k = k0 + e % PTK;
-      pb[q] = (c < m2 && k < kdim) ? lb[(long long)c * ldl + k] : T(0);
-    }
-  };
-  auto store_slab = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < A_LOADS; ++q) {
-      const int e = tid + q * NTHREADS;
-      sa[buf][e % PTK][e / PTK] = pa[q];
-    }
-#pragma unroll
-    for (int q = 0; q < B_LOADS; ++q) {
-      const int e = tid + q * NTHREADS;
-      sb[buf][e % PTK][e / PTK] = pb[q];
-    }
-  };
-
-  if (kdim > 0) {
-    load_slab(0);
-    store_slab(0);
-  }
-  __syncthreads();  // the slab and the program are in shared memory
-
-  int buf = 0;
-  for (int k0 = 0; k0 < kdim; k0 += PTK) {
-    const bool more = k0 + PTK < kdim;
-    if (more) load_slab(k0 + PTK);  // in flight during the multiply
-#pragma unroll
-    for (int kk = 0; kk < PTK; ++kk) {
-      T a[PRM], b[PRN];
-      load8(&sa[buf][kk][ty * PRM], a);
-      load8(&sb[buf][kk][tx * PRN], b);
-#pragma unroll
-      for (int i = 0; i < PRM; ++i)
-#pragma unroll
-        for (int j = 0; j < PRN; ++j) acc[i][j] += a[i] * b[j];
-    }
-    if (more) store_slab(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  const T noise2 = noise * noise;
-#pragma unroll
-  for (int i = 0; i < PRM; ++i) {
-    const int r = rbase + ty * PRM + i;
-    if (r >= m1) continue;
-#pragma unroll
-    for (int j = 0; j < PRN; ++j) {
-      const int c = cbase + tx * PRN + j;
-      if (c >= m2) continue;
-      const T v = strip_entry<T, METHOD>(x1 + (long long)r * d, x2 + (long long)c * d, d,
-                                         row0 + r, col0 + c, n, noise2, needs, prog.n_ops,
-                                         sops, soffs, sprm);
-      out[(long long)r * m2 + c] = v - acc[i][j];
-    }
-  }
-}
-
-template <typename T>
-int launch_simt(const T* x1, const T* x2, const T* la, const T* lb, T* out, int m1,
-                int m2, int d, long long ldl, int kdim, long long row0,
-                long long col0, long long n, double noise, int method, int needs,
-                CovProgram prog, cudaStream_t s) {
-  const dim3 block(NTHREADS);
-  const dim3 grid((m2 + PBN - 1) / PBN, (m1 + PBM - 1) / PBM);
-  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  const T nz = static_cast<T>(noise);
-  switch (method) {
-    case GRAM:
-      panel_strip_kernel<T, GRAM><<<grid, block, 0, s>>>(
-          x1, x2, la, lb, out, m1, m2, d, ldl, kdim, row0, col0, n, nz, needs, prog);
-      break;
-    case GRAM_BF16:
-      panel_strip_kernel<T, GRAM_BF16><<<grid, block, 0, s>>>(
-          x1, x2, la, lb, out, m1, m2, d, ldl, kdim, row0, col0, n, nz, needs, prog);
-      break;
-    case DIRECT:
-      panel_strip_kernel<T, DIRECT><<<grid, block, 0, s>>>(
-          x1, x2, la, lb, out, m1, m2, d, ldl, kdim, row0, col0, n, nz, needs, prog);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -645,13 +500,36 @@ __device__ __forceinline__ void prepare_stage(unsigned char* smem, uint64_t* ful
   load_a(stage, tid, a);
 }
 
-// Epilogue of the tensor-core kernels. The accumulator tile goes to shared
+// The rolled loop of every epilogue: `tile` holds a BM x BN downdate in
+// shared memory (row stride BN + 1); each entry's covariance (features,
+// kernel map, diagonal and identity rules) minus it is stored once, masked
+// to the strip, consecutive threads on consecutive columns. Rolled, so that
+// no call and no live accumulator holds registers.
+template <typename T, int METHOD, int BM, int BN, int THREADS>
+__device__ __forceinline__ void strip_from_tile(const T* tile, int tid, int rbase, int cbase,
+                                                const T* __restrict__ x1, const T* __restrict__ x2,
+                                                T* __restrict__ out, int m1, int m2, int d,
+                                                long long row0, long long col0, long long n,
+                                                T noise, int needs, int n_ops, const int* sops,
+                                                const int* soffs, const T* sprm) {
+  const T noise2 = noise * noise;
+#pragma unroll 1
+  for (int e = tid; e < BM * BN; e += THREADS) {
+    const int r = rbase + e / BN, c = cbase + e % BN;
+    if (r < m1 && c < m2) {
+      const T v = covariance_entry<T, METHOD>(x1 + (long long)r * d, x2 + (long long)c * d, d,
+                                              row0 + r, col0 + c, n, noise2, needs, n_ops, sops,
+                                              soffs, sprm);
+      out[(long long)r * m2 + c] = v - tile[(e / BN) * (BN + 1) + e % BN];
+    }
+  }
+}
+
+// Epilogue of the wgmma kernels. The accumulator tile goes to shared
 // memory (the ring is free: every stage was consumed), accumulator j of
 // thread (warp w, lane l) of warpgroup g at row 64 g + 16 w + l / 4 (+ 8
-// for j % 4 >= 2), column 8 (j / 4) + 2 (l % 4) + j % 2; then a rolled loop
-// over the tile computes each entry's kernel map, so no call and no live
-// accumulator holds registers, and consecutive threads store consecutive
-// columns.
+// for j % 4 >= 2), column 8 (j / 4) + 2 (l % 4) + j % 2; then
+// strip_from_tile.
 template <int METHOD>
 __device__ __forceinline__ void store_strip(unsigned char* smem, const float (&acc)[64], int tid,
                                             int rbase, int cbase, const float* __restrict__ x1,
@@ -672,17 +550,9 @@ __device__ __forceinline__ void store_strip(unsigned char* smem, const float (&a
     }
   }
   asm volatile("bar.sync 1, 256;" ::: "memory");
-  const float noise2 = noise * noise;
-#pragma unroll 1
-  for (int e = tid; e < BM * BN; e += THREADS) {
-    const int r = rbase + e / BN, c = cbase + e % BN;
-    if (r < m1 && c < m2) {
-      const float v = covariance_entry<float, METHOD>(
-          x1 + (long long)r * d, x2 + (long long)c * d, d, row0 + r, col0 + c, n, noise2,
-          needs, n_ops, sops, soffs, sprm);
-      out[(long long)r * m2 + c] = v - tile[(e / BN) * (BN + 1) + e % BN];
-    }
-  }
+  strip_from_tile<float, METHOD, BM, BN, THREADS>(tile, tid, rbase, cbase, x1, x2, out, m1, m2, d,
+                                                  row0, col0, n, noise, needs, n_ops, sops, soffs,
+                                                  sprm);
 }
 
 // `lmap` covers the strip's rows L[j0:cap, 0:j0] (TMA path); `la` points at
@@ -1232,6 +1102,213 @@ __global__ void __launch_bounds__(ws::THREADS, 1)
                       needs, prog.n_ops, sops, soffs, sprm);
 }
 
+// ---------------------------------------------------------------------------
+// float64: mma.sync on the FP64 tensor cores, fed by TMA or cp.async
+// ---------------------------------------------------------------------------
+
+namespace dm {
+constexpr int BM = 128;                       // tile rows: two warp rows of 64
+constexpr int BN = 128;                       // tile columns: four warp columns of 32
+constexpr int WM = 64;                        // a warp's rows: four mma tiles of 16
+constexpr int WN = 32;                        // a warp's columns: four mma tiles of 8
+constexpr int THREADS = 256;                  // eight warps
+constexpr int BOX_K = 16;                     // doubles in a 128-byte swizzle row: one TMA box
+constexpr int BK = 32;                        // contraction per stage: two boxes
+constexpr int STAGES = 3;                     // ring of loaded stages
+constexpr int BOX_BYTES = BM * BOX_K * 8;     // one operand box, 16 KB
+constexpr int OPERAND_BYTES = (BK / BOX_K) * BOX_BYTES;
+constexpr int STAGE_BYTES = 2 * OPERAND_BYTES;  // A's boxes, then B's
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment
+static_assert(BM == BN, "one box shape serves both operands");
+static_assert(BM == 2 * WM && BN == 4 * WN && THREADS == 8 * 32, "eight warps, 2 x 4");
+static_assert(STAGES * STAGE_BYTES >= BM * (BN + 1) * 8, "the epilogue's tile");
+}  // namespace dm
+
+// cp.async of one double, zero-filled when `valid` is false.
+__device__ __forceinline__ void cp_async8(void* dst, const double* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// Starts the load of stage k of the float64 kernel into its ring slot: for
+// each operand two 128 x 16 boxes, the contraction's columns k BK .. k BK +
+// 31 of the strip's rows (A) and of its first rows (B), in the 128-byte
+// swizzle (16-byte chunk q of box row r at chunk q ^ (r % 8)). TMA from
+// thread 0 (the slot's full barrier expects the bytes; the map's extents
+// zero-fill rows past the strip and columns past kdim), or cp.async of one
+// double at a time from every thread, zero-filled there too (each thread
+// arrives once its copies have landed).
+template <bool TMA>
+__device__ __forceinline__ void load_stage_f64(unsigned char* smem, uint64_t* full_bar, int k,
+                                               int tid, const CUtensorMap* lmap,
+                                               const double* __restrict__ la, int m1, int m2,
+                                               long long ldl, int kdim, int rbase, int cbase) {
+  using namespace dm;
+  const int s = k % STAGES;
+  unsigned char* stage = smem + s * STAGE_BYTES;
+  if (TMA) {
+    if (tid == 0) {
+      mbar_expect_tx(&full_bar[s], STAGE_BYTES);
+#pragma unroll
+      for (int h = 0; h < BK / BOX_K; ++h) {
+        tma_load(stage + h * BOX_BYTES, lmap, &full_bar[s], k * BK + h * BOX_K, rbase);
+        tma_load(stage + OPERAND_BYTES + h * BOX_BYTES, lmap, &full_bar[s], k * BK + h * BOX_K,
+                 cbase);
+      }
+    }
+  } else {
+    const int k0 = k * BK;
+    for (int e = tid; e < 2 * BM * BK; e += THREADS) {
+      const int op = e / (BM * BK);
+      const int r = (e / BK) % BM;
+      const int c = e % BK;
+      const int row = (op ? cbase : rbase) + r;
+      const int kk = k0 + c;
+      const bool valid = row < (op ? m2 : m1) && kk < kdim;
+      const double* src = la + (valid ? (long long)row * ldl + kk : 0);
+      const int q = (c % BOX_K) >> 1;  // the 16-byte chunk in the box row
+      const int off = op * OPERAND_BYTES + (c / BOX_K) * BOX_BYTES + r * 128 +
+                      ((q ^ (r & 7)) << 4) + ((c & 1) << 3);
+      cp_async8(stage + off, src, valid);
+    }
+    cp_async_arrive(&full_bar[s]);
+  }
+}
+
+// Row r of a swizzled 128 x 16 box: its doubles 4t .. 4t + 3, as two
+// 16-byte loads. For the eight threads of a quarter warp (rows g and g + 1
+// mod 8, t = 0..3) the sixteen chunks are the eight of each row, XORed by
+// the row: free of bank conflicts.
+__device__ __forceinline__ void load_quad(const unsigned char* box, int r, int t, double (&v)[4]) {
+  const unsigned char* row = box + r * 128;
+  const int sw = r & 7;
+  const double2 lo = *reinterpret_cast<const double2*>(row + (((2 * t) ^ sw) << 4));
+  const double2 hi = *reinterpret_cast<const double2*>(row + (((2 * t + 1) ^ sw) << 4));
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
+
+// c += A (16 x 16) . B (16 x 8) in float64 on the tensor cores. The
+// register layout of thread (g = lane / 4, t = lane % 4): a[i] = A[g + 8 (i
+// % 2)][t + 4 (i / 2)], b[i] = B[t + 4 i][g], c[i] = C[g + 8 (i / 2)][2 t +
+// i % 2].
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[8], const double (&b)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, {%0, %1, %2, %3};"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]), "d"(a[7]),
+        "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// acc += this warp's 64 rows of an A box times its 32 rows of a B box,
+// transposed: 16 deep. The contraction's order is free, so the
+// instruction's k index t + 4 j of thread t is the box column 4 t + j, the
+// same in A and B: every thread reads four consecutive doubles of a row
+// (load_quad) and no element twice.
+__device__ __forceinline__ void warp_box(double (&acc)[4][4][4], const unsigned char* a_box,
+                                         const unsigned char* b_box, int wr, int wc, int g,
+                                         int t) {
+  double b[4][4];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) load_quad(b_box, wc + ni * 8 + g, t, b[ni]);
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    double lo[4], hi[4];
+    load_quad(a_box, wr + mi * 16 + g, t, lo);
+    load_quad(a_box, wr + mi * 16 + 8 + g, t, hi);
+    const double a[8] = {lo[0], hi[0], lo[1], hi[1], lo[2], hi[2], lo[3], hi[3]};
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) dmma(acc[mi][ni], a, b[ni]);
+  }
+}
+
+// `lmap` covers the strip's rows L[j0:j0+m1, 0:kdim] (TMA path); `la` points
+// at their first element (cp.async path). The strip's columns are its first
+// m2 rows.
+template <int METHOD, bool TMA>
+__global__ void __launch_bounds__(dm::THREADS, 1)
+    panel_strip_f64_kernel(const __grid_constant__ CUtensorMap lmap,
+                           const double* __restrict__ x1, const double* __restrict__ x2,
+                           const double* __restrict__ la, double* __restrict__ out, int m1,
+                           int m2, int d, long long ldl, int kdim, long long row0,
+                           long long col0, long long n, double noise, int needs,
+                           const __grid_constant__ CovProgram prog) {
+  using namespace dm;
+  extern __shared__ unsigned char smem_dyn[];
+  __shared__ __align__(8) uint64_t full_bar[STAGES];
+  __shared__ double sprm[MAX_PARAMS];
+  __shared__ int sops[MAX_OPS];
+  __shared__ int soffs[MAX_OPS];
+
+  // stages on 1024-byte boundaries (the swizzle atom)
+  unsigned char* smem = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  // A 1-D grid in launch order: a row tile with all its column tiles, then
+  // the next, so that the blocks in flight share their A rows in L2.
+  const int col_tiles = (m2 + BN - 1) / BN;
+  const int rbase = static_cast<int>(blockIdx.x / col_tiles) * BM;
+  const int cbase = static_cast<int>(blockIdx.x % col_tiles) * BN;
+  const int num_k = (kdim + BK - 1) / BK;
+
+  if (tid < MAX_PARAMS) sprm[tid] = prog.params[tid];
+  if (tid < MAX_OPS) {
+    sops[tid] = prog.ops[tid];
+    soffs[tid] = prog.offs[tid];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full_bar[s], TMA ? 1 : THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  for (int k = 0; k < STAGES && k < num_k; ++k) {
+    load_stage_f64<TMA>(smem, full_bar, k, tid, &lmap, la, m1, m2, ldl, kdim, rbase, cbase);
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wr = (warp / 4) * WM, wc = (warp % 4) * WN, g = lane / 4, t = lane % 4;
+  double acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0;
+  for (int kb = 0; kb < num_k; ++kb) {
+    const int s = kb % STAGES;
+    const unsigned char* stage = smem + s * STAGE_BYTES;
+    mbar_wait(&full_bar[s], (kb / STAGES) & 1);
+#pragma unroll
+    for (int h = 0; h < BK / BOX_K; ++h) {
+      warp_box(acc, stage + h * BOX_BYTES, stage + OPERAND_BYTES + h * BOX_BYTES, wr, wc, g, t);
+    }
+    // every warp is done with the slot: it takes the stage STAGES ahead
+    __syncthreads();
+    if (kb + STAGES < num_k) {
+      load_stage_f64<TMA>(smem, full_bar, kb + STAGES, tid, &lmap, la, m1, m2, ldl, kdim, rbase,
+                          cbase);
+    }
+  }
+
+  // the accumulators to shared memory (the ring is free), then the epilogue
+  double* tile = reinterpret_cast<double*>(smem);  // BM x (BN + 1)
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wr + mi * 16 + g + 8 * (i / 2), c = wc + ni * 8 + 2 * t + i % 2;
+        tile[r * (BN + 1) + c] = acc[mi][ni][i];
+      }
+  __syncthreads();
+  strip_from_tile<double, METHOD, BM, BN, THREADS>(tile, tid, rbase, cbase, x1, x2, out, m1, m2, d,
+                                                   row0, col0, n, noise, needs, prog.n_ops, sops,
+                                                   soffs, sprm);
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1258,19 +1335,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Encodes a 2-D tensor map over `rows` rows of `cols` elements (row stride
-// `ld` elements of `elem` bytes) in boxes of box_rows x box_cols, 128-byte
-// swizzle; false if the encoder refuses it.
-inline bool encode_map(CUtensorMap* map, const void* base, bool bf16, long long ld, int cols,
-                       int rows, int box_cols, int box_rows) {
+// Encodes a 2-D tensor map over `rows` rows of `cols` elements of type
+// `type` (bfloat16, float32 or float64; row stride `ld` elements) in boxes of
+// box_rows x box_cols, 128-byte swizzle; false if the encoder refuses it.
+inline bool encode_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, long long ld,
+                       int cols, int rows, int box_cols, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const int elem = bf16 ? 2 : 4;
+  const int elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT64   ? 8
+                   : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
+                                                             : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+  return encode(map, type, 2,
                 const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1305,7 +1384,8 @@ inline int launch_tf32x3(const float* x1, const float* x2, const float* la, cons
   std::memset(&map, 0, sizeof(map));
   // TMA needs a 16-byte aligned base and row stride
   const bool tma = (ldl * 4) % 16 == 0 && reinterpret_cast<uintptr_t>(la) % 16 == 0;
-  if (tma && kdim > 0 && !encode_map(&map, la, false, ldl, kdim, m1, tc::BK, tc::BM)) {
+  if (tma && kdim > 0 &&
+      !encode_map(&map, la, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ldl, kdim, m1, tc::BK, tc::BM)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float nz = static_cast<float>(noise);
@@ -1379,8 +1459,10 @@ int launch_ws(const float* x1, const float* x2, const void* la, const void* lb, 
   // TMA needs a 16-byte aligned base and row stride (the copy has both)
   const bool tma = (ldl * (bf16 ? 2 : 4)) % 16 == 0 && reinterpret_cast<uintptr_t>(la) % 16 == 0;
   if (tma && kdim > 0 &&
-      !(encode_map(&amap, la, bf16, ldl, kdim, m1, bf16 ? ws::BK : ws::BK / 2, ws::BM) &&
-        encode_map(&bmap, b_rows, true, ldb, kdim, m2, ws::BK, ws::BN))) {
+      !(encode_map(&amap, la, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                   ldl, kdim, m1, bf16 ? ws::BK : ws::BK / 2, ws::BM) &&
+        encode_map(&bmap, b_rows, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ldb, kdim, m2, ws::BK,
+                   ws::BN))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the serialized loop for a bfloat16 factor read in place at a row stride
@@ -1402,6 +1484,55 @@ int launch_ws(const float* x1, const float* x2, const void* la, const void* lb, 
     default: err = cudaErrorInvalidValue;
   }
 #undef FRIEDRICH_WS
+  return static_cast<int>(err);
+}
+
+template <int METHOD, bool TMA>
+cudaError_t launch_f64_as(const CUtensorMap& map, const double* x1, const double* x2,
+                          const double* la, double* out, int m1, int m2, int d, long long ldl,
+                          int kdim, long long row0, long long col0, long long n, double noise,
+                          int needs, const CovProgram& prog, cudaStream_t s) {
+  auto kernel = panel_strip_f64_kernel<METHOD, TMA>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dm::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)((m1 + dm::BM - 1) / dm::BM) * ((m2 + dm::BN - 1) / dm::BN);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(tiles), dm::THREADS, dm::SMEM_BYTES, s>>>(
+      map, x1, x2, la, out, m1, m2, d, ldl, kdim, row0, col0, n, noise, needs, prog);
+  return cudaGetLastError();
+}
+
+// One launch of the float64 instantiation. `la` points at m1 float64 prefix
+// rows (row stride `ldl`) whose first `kdim` columns are contracted; the
+// strip's columns are its first m2 rows, so `lb` must equal `la`. TMA where
+// the base and the row stride are 16-byte aligned, cp.async elsewhere (an
+// odd capacity, an explicit prefix of odd width).
+inline int launch_f64(const double* x1, const double* x2, const double* la, const double* lb,
+                      double* out, int m1, int m2, int d, long long ldl, int kdim, long long row0,
+                      long long col0, long long n, double noise, int method, int needs,
+                      const CovProgram& prog, cudaStream_t s) {
+  if (lb != la || m2 > m1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  std::memset(&map, 0, sizeof(map));
+  const bool tma = (ldl * 8) % 16 == 0 && reinterpret_cast<uintptr_t>(la) % 16 == 0;
+  if (tma && kdim > 0 &&
+      !encode_map(&map, la, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, ldl, kdim, m1, dm::BOX_K, dm::BM)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define FRIEDRICH_F64(M)                                                                         \
+  (tma ? launch_f64_as<M, true>(map, x1, x2, la, out, m1, m2, d, ldl, kdim, row0, col0, n, noise, \
+                                needs, prog, s)                                                   \
+       : launch_f64_as<M, false>(map, x1, x2, la, out, m1, m2, d, ldl, kdim, row0, col0, n,      \
+                                 noise, needs, prog, s))
+  cudaError_t err;
+  switch (method) {
+    case GRAM: err = FRIEDRICH_F64(GRAM); break;
+    case GRAM_BF16: err = FRIEDRICH_F64(GRAM_BF16); break;
+    case DIRECT: err = FRIEDRICH_F64(DIRECT); break;
+    default: err = cudaErrorInvalidValue;
+  }
+#undef FRIEDRICH_F64
   return static_cast<int>(err);
 }
 

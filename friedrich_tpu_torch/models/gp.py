@@ -120,18 +120,16 @@ def check_backend(backend: str, storage: Optional[str] = None) -> None:
 
 
 def resolve_backend(backend: str, cap: int, dtype: torch.dtype, device) -> str:
-    """The backend a build runs: ``"auto"`` is ``"streamed"`` on a CUDA
-    device when the dense backend's K and L (2 cap^2 entries) would pass
-    ``config.TWO_MATRIX_FRACTION`` of the card's memory, and ``"dense"``
-    otherwise and on the CPU. Replaces the JAX package's TPU-measured
-    threshold (``friedrich_tpu/models/gp.py:auto_large_threshold``)."""
+    """The backend a build runs: ``"auto"`` is ``"streamed"`` when the
+    dense backend's K and L (2 cap^2 entries) would pass
+    ``config.TWO_MATRIX_FRACTION`` of the device's memory
+    (``config.two_matrices_fit``: always within it on the CPU), and
+    ``"dense"`` otherwise. Replaces the JAX package's TPU-measured threshold
+    (``friedrich_tpu/models/gp.py:auto_large_threshold``)."""
     if backend != "auto":
         return backend
-    device = torch.device(device)
     itemsize = torch.finfo(dtype).bits // 8
-    if device.type == "cuda" and not config.two_matrices_fit(cap, itemsize, device):
-        return "streamed"
-    return "dense"
+    return "dense" if config.two_matrices_fit(cap, itemsize, device) else "streamed"
 
 
 def _build_factor(kernel, x_pad, n, noise, eps, method, backend="dense", block=None, l0=None,
@@ -395,10 +393,12 @@ def sweep_moments(solve, c: torch.Tensor, beta: torch.Tensor,
     differently: on an NVIDIA H100 80GB HBM3 (700 W) at capacity 100,512 in
     float32 they differed by up to 3.0e-3 (``chip_smoke.py`` phase 9c,
     PERF.md). Without ``block`` the sweep is one solve of all the columns,
-    the cheapest for one call."""
+    the cheapest for one call, whose (capacity, m) solution is squared in
+    place: the sweep holds two such matrices, ``c`` and ``kl``, not three."""
     if block is None:
         kl = solve(c)
-        return kl.mT @ beta, torch.sum(kl * kl, dim=0)
+        fit = kl.mT @ beta
+        return fit, torch.sum(kl.square_(), dim=0)
     m = c.shape[1]
     fit, quad = c.new_empty(m), c.new_empty(m)
     for lo in range(0, m, block):

@@ -20,7 +20,9 @@ instantiations:
   both operands rounded to bfloat16, one bf16 product;
 - ``"bf16"``: a bfloat16 prefix (the factor storage ``"bf16"``), one bf16
   product;
-- ``"f64"``: float64 on the CUDA cores.
+- ``"f64"``: float64 on the FP64 tensor cores (``mma.sync`` m16n8k16 fed
+  by TMA, or by ``cp.async`` where the row stride is odd), each product a
+  float64 FMA and the sums float64.
 
 ``"one_pass"`` and ``"bf16"`` share one kernel (``panel_strip_ws_kernel``):
 a producer warpgroup keeps TMA loads in flight on a ring of stages with a

@@ -135,8 +135,64 @@ def test_panel_strip_matches_plain_version(card, name, dtype, rtol, atol, unit, 
 
 
 def _strip_bound(p, block, j0, unit):
-    """j0 u (|P| |P[:B]|^T): float32 accumulation of the downdate."""
+    """j0 u (|P| |P[:B]|^T): the downdate's accumulation at unit roundoff u."""
     return j0 * unit * (p.abs() @ p[:block].abs().mT)
+
+
+# B2's float64 instantiation (mma.sync on the FP64 tensor cores) against its
+# plain version at ragged shapes: capacity 1,000 takes TMA, 1,001 and 1,003
+# (odd row strides) cp.async; j0 = 0 (nothing to contract) and j0 not a
+# multiple of the 16-deep box or the 32-deep stage; B below the
+# instruction's 8 columns; rows not a multiple of the 128-row tile; strips
+# whose rows end before the capacity (``end``); every distance method; a
+# leaf and the Sum/Prod program. NaN right of j0 and below ``end`` must never
+# be read. float64 differs only in summation order: 1e-12 plus j0 u
+# (|P| |P[:B]|^T); gram_bf16's dot product is float32 by definition.
+@pytest.mark.parametrize("cap", (1000, 1001, 1003))
+@pytest.mark.parametrize("method", ("gram", "gram_bf16", "direct"))
+@pytest.mark.parametrize("name", KERNELS)
+def test_panel_strip_f64_matches_plain_version_at_ragged_shapes(card, name, method, cap):
+    rng = np.random.default_rng(85)
+    n = 937
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), device=card)
+    l_full = torch.as_tensor(np.tril(rng.normal(size=(cap, cap)) * 0.1), device=card)
+    kern = KERNELS[name].to(torch.float64, card)
+    atol, rtol = (2e-5, 2e-5) if method == "gram_bf16" else (1e-12, 0.0)
+    for j0, block, end in ((0, 384, cap), (0, 5, cap), (17, 130, cap), (300, 7, cap),
+                           (333, 500, cap), (801, cap - 801, cap), (300, 77, 613), (96, 96, 500)):
+        prefix = l_full.clone()
+        prefix[:, j0:] = float("nan")
+        prefix[end:] = float("nan")
+        before = pc.LAUNCHES_BY_VARIANT["f64"]
+        got = pc.panel_strip(kern, x[j0:end], x[j0:j0 + block], prefix, n, 0.3, j0, block, method,
+                             end=end)
+        assert pc.LAUNCHES_BY_VARIANT["f64"] == before + 1
+        want = panel_fused.plain_panel_strip(kern, x[j0:end], x[j0:j0 + block], prefix, n, 0.3, j0,
+                                             block, method, end=end)
+        p = prefix[j0:end, :j0]
+        bound = _strip_bound(p, block, j0, 2.0**-53)
+        assert got.shape == (end - j0, block)
+        assert bool(((got - want).abs() <= atol + rtol * want.abs() + bound).all())
+
+
+# The float64 explicit prefix (the out-of-core factorization's chunks): a
+# contiguous (cap - j0, C) tensor, C = 0, odd (7, 301: cp.async) and even
+# (256: TMA).
+@pytest.mark.parametrize("width", (0, 7, 256, 301))
+def test_panel_strip_f64_explicit_prefix_matches_plain_version(card, width):
+    rng = np.random.default_rng(86)
+    cap, n, j0, block = 1000, 950, 416, 320
+    x = torch.as_tensor(rng.normal(size=(cap, 5)), device=card)
+    prefix = torch.as_tensor(rng.normal(size=(cap - j0, width)) * 0.1, device=card)
+    kern = KERNELS["Composite"].to(torch.float64, card)
+    before = pc.LAUNCHES_BY_VARIANT["f64"]
+    got = panel_fused.panel_strip(kern, x[j0:], x[j0:j0 + block], None, n, 0.3, j0, block,
+                                  prefix=prefix)
+    assert pc.LAUNCHES_BY_VARIANT["f64"] == before + 1
+    want = panel_fused.plain_panel_strip(kern, x[j0:], x[j0:j0 + block], None, n, 0.3, j0, block,
+                                         prefix=prefix)
+    bound = width * 2.0**-53 * (prefix.abs() @ prefix[:block].abs().mT)
+    assert bool(((got - want).abs() <= 1e-12 + bound).all())
 
 
 # The bfloat16-prefix and single-pass instantiations against the plain
@@ -420,6 +476,20 @@ def test_streamed_factor_on_the_card_matches_the_cpu(card):
                                        1250, 0.3, block=(500, 300, 500))
     want, want_ok = streamed_cholesky_factor(kern.to(torch.float64, "cpu"), torch.as_tensor(x), 1250,
                                              0.3, block=(500, 300, 500))
+    assert bool(ok) and bool(want_ok)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+
+
+def test_f64_streamed_factor_at_an_odd_capacity_matches_the_cpu(card):
+    # panels of odd width and odd offsets on the cp.async feed (row stride
+    # 1,003), several 32-deep stages past the ring's three
+    rng = np.random.default_rng(87)
+    x = rng.normal(size=(1003, 4))
+    kern = KERNELS["Composite"]
+    got, ok = streamed_cholesky_factor(kern.to(torch.float64, card), torch.as_tensor(x, device=card),
+                                       950, 0.3, block=(333, 401, 269))
+    want, want_ok = streamed_cholesky_factor(kern.to(torch.float64, "cpu"), torch.as_tensor(x), 950,
+                                             0.3, block=(333, 401, 269))
     assert bool(ok) and bool(want_ok)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
 

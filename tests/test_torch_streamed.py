@@ -20,6 +20,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import friedrich_tpu as jft
+import friedrich_tpu.config as jconfig
 import friedrich_tpu.kernels as jk
 import friedrich_tpu.priors as jp
 import friedrich_tpu_torch as tft
@@ -229,12 +230,18 @@ def test_panel_widths():
 # ---------------------------------------------------------------------------
 
 
-def test_builder_streamed_flow_matches_jax(monkeypatch):
+def _builder_flow_matches_jax(monkeypatch, backend):
+    """The builder's flow in both packages on ``backend``, float64: train
+    with the fit, predict, the LML, a 40-point append, the predictions
+    again, and ``sample_at`` with a given ``z``."""
     rng = np.random.default_rng(57)
     n = 1200
     x = rng.normal(size=(n, 3))
     y = np.sin(x[:, 0]) + 0.5 * np.cos(2.0 * x[:, 1]) + 0.1 * rng.normal(size=n)
     xq = rng.normal(size=(17, 3))
+    x_add = rng.normal(size=(40, 3))
+    y_add = np.sin(x_add[:, 0]) + 0.5 * np.cos(2.0 * x_add[:, 1])
+    z = rng.normal(size=17)
     logs = []
     fit = jft.GaussianProcess.fit_parameters
 
@@ -243,12 +250,12 @@ def test_builder_streamed_flow_matches_jax(monkeypatch):
         return fit(self, *args, fit_log=logs[-1], **kwargs)
 
     monkeypatch.setattr(jft.GaussianProcess, "fit_parameters", logged_fit)
-    jgp_ = (jft.GaussianProcessBuilder(x, y).set_backend("streamed").set_panel_block(512)
-            .set_fit_parameters(100, 0.05).fit_kernel().fit_prior().train())
-    builder = (tft.GaussianProcessBuilder(x, y).set_backend("streamed").set_panel_block(512)
-               .set_fit_parameters(100, 0.05).fit_kernel().fit_prior())
+    jgp_ = (jft.GaussianProcessBuilder(x, y).set_backend(backend).set_panel_block(512)
+            .set_capacity(n + 64).set_fit_parameters(100, 0.05).fit_kernel().fit_prior().train())
+    builder = (tft.GaussianProcessBuilder(x, y).set_backend(backend).set_panel_block(512)
+               .set_capacity(n + 64).set_fit_parameters(100, 0.05).fit_kernel().fit_prior())
     tgp_ = builder.train()
-    assert tgp_.state.backend == jgp_.state.backend == "streamed"
+    assert tgp_.state.backend == jgp_.state.backend == backend
     assert tgp_.state.block == jgp_.state.block == 512
     assert builder.timings["fit_iterations"] == len(logs[0]) > 1
     # the multiplicative ADAM update compounds float64 rounding over the
@@ -256,11 +263,41 @@ def test_builder_streamed_flow_matches_jax(monkeypatch):
     jparams = np.concatenate([np.asarray(jgp_.kernel.get_params()), [jgp_.noise]])
     tparams = np.concatenate([tgp_.kernel.get_params().numpy(), [tgp_.noise]])
     np.testing.assert_allclose(tparams, jparams, rtol=1e-7)
-    np.testing.assert_allclose(tgp_.predict(xq), jgp_.predict(xq), rtol=1e-9, atol=1e-9)
-    np.testing.assert_allclose(tgp_.predict_variance(xq), jgp_.predict_variance(xq),
-                               rtol=1e-9, atol=1e-9)
-    np.testing.assert_allclose(tgp_.log_marginal_likelihood(), jgp_.log_marginal_likelihood(),
-                               rtol=1e-9)
+
+    def predictions_agree():
+        np.testing.assert_allclose(tgp_.predict(xq), jgp_.predict(xq), rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(tgp_.predict_variance(xq), jgp_.predict_variance(xq),
+                                   rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(tgp_.log_marginal_likelihood(), jgp_.log_marginal_likelihood(),
+                                   rtol=1e-9)
+
+    predictions_agree()
+    factor = tgp_.state.l
+    jgp_.add_samples(x_add, y_add)
+    tgp_.add_samples(x_add, y_add)
+    assert tgp_.num_samples == jgp_.num_samples == n + 40
+    predictions_agree()
+    jmvn, tmvn = jgp_.sample_at(xq), tgp_.sample_at(xq)
+    np.testing.assert_allclose(tmvn._mean + tmvn._chol @ torch.as_tensor(z),
+                               jmvn._mean + jmvn._chol @ jnp.asarray(z), rtol=1e-9, atol=1e-9)
+    return factor, tgp_
+
+
+def test_builder_streamed_flow_matches_jax(monkeypatch):
+    _builder_flow_matches_jax(monkeypatch, "streamed")
+
+
+def test_builder_auto_flow_on_a_small_card_matches_jax(tiny_card, monkeypatch):
+    # "auto" resolves to the streamed backend where two factors do not fit
+    # the card (the port's device memory, the JAX package's threshold); the
+    # append then writes the factor in place in both
+    assert tgp.resolve_backend("auto", 1264, torch.float64, "cpu") == "streamed"
+    jconfig.set_memory_policy(auto_large_threshold=1000)
+    try:
+        factor, tgp_ = _builder_flow_matches_jax(monkeypatch, "auto")
+    finally:
+        jconfig.set_memory_policy(auto_large_threshold=None)
+    assert tgp_.state.l is factor
 
 
 # ---------------------------------------------------------------------------
