@@ -762,16 +762,18 @@ def plain_strip_chunked(kernel, x_tail, xj, l_full, n_live: int, noise, j0: int,
 
 
 def strip_excess(got, want, prefix, block: int, atol: float, rtol: float, unit: float,
-                 split: float) -> float:
+                 split: float, panel_rows=None) -> float:
     """Largest amount by which a panel strip misses its plain version beyond
-    atol + rtol |want| + (C u + split) (|P| |P[:block]|^T), ``P`` the strip's
-    (rows, C) prefix (``L[j0:, :j0]`` in the factor); <= 0 when within.
+    atol + rtol |want| + (C u + split) (|P| |Q|^T), ``P`` the strip's
+    (rows, C) prefix (``L[j0:, :j0]`` in the factor) and ``Q`` the panel's
+    rows of it, ``P[:block]`` or ``panel_rows``; <= 0 when within.
     ``split``: the float32 kernel's 3xTF32 term
     (``panel_strip_cuda.SPLIT_ERROR``), 0 in float64."""
     kdim = prefix.shape[1]
     if kdim == 0:
         return excess(got, want, atol, rtol)
-    bound = abs_product(prefix, prefix[:block]).mul_(kdim * unit + split)
+    rows = prefix[:block] if panel_rows is None else panel_rows[:, :kdim]
+    bound = abs_product(prefix, rows).mul_(kdim * unit + split)
     bound.add_(want.abs(), alpha=rtol).add_(atol)
     return float(((got - want).abs() - bound).max())
 
@@ -1268,6 +1270,7 @@ def reset_launches() -> None:
     panel_strip_cuda.LAUNCHES = 0
     for kind in panel_strip_cuda.LAUNCHES_BY_VARIANT:
         panel_strip_cuda.LAUNCHES_BY_VARIANT[kind] = 0
+        panel_strip_cuda.LAUNCHES_TWO_OPERAND[kind] = 0
 
 
 def read_launches() -> tuple[int, dict, int]:
@@ -3663,6 +3666,545 @@ def phase_float64_flow(n: int) -> dict:
             "launches": by_variant["f64"], "b1": [b1_sub, b1_cross]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the multi-rank layer (parallel/, mcmc/sharded.py,
+# mcmc/distributed_logprob.py)
+# ---------------------------------------------------------------------------
+
+#: 11a's ragged two-operand strips: (rows of the rank's strip, B, prefix
+#: depth j0, global row of the strip's first row, the prefix's row stride,
+#: the panel rows' row stride). Row strides 1,001 and 81 are not multiples
+#: of 4 (the cp.async and plain-load paths); j0 = 0; an odd depth with
+#: B < 8; fewer rows than B; every strip below its panel (row0 > j0 + B).
+TWO_OPERAND_CASES = ((333, 128, 256, 1000, 1001, 264), (500, 96, 0, 700, 1000, 8),
+                     (257, 5, 77, 600, 1000, 81), (640, 200, 384, 1000, 1000, 384),
+                     (64, 200, 300, 900, 1000, 301))
+TWO_OPERAND_N = 1200
+#: 11a's timed strip: what rank 1 of a two-rank factor at capacity 100,512
+#: sees on the middle panel: its 50,256 rows, B = 1,396 (the default panel
+#: of a 50,256-row block), a prefix 25,128 deep read in place from its
+#: (50,256, 100,512) row block, the panel's rows broadcast by rank 0.
+TWO_RANK_CAP, TWO_RANK_ROWS, TWO_RANK_B, TWO_RANK_J0 = 100_512, 50_256, 1396, 18 * 1396
+
+
+def phase_two_operand() -> dict:
+    """11a: B2 with the panel's rows as a separate operand against its plain
+    version in all four instantiations at :data:`TWO_OPERAND_CASES` (NaN
+    right of the prefix in both operands, which the kernel must never read),
+    then one launch at :data:`TWO_RANK_ROWS`'s shape timed beside its bound,
+    its plain version and one ``torch.addmm`` of the downdate. Returns the
+    kernel line's row for the two-operand launch."""
+    import torch
+
+    from friedrich_tpu_torch import kernels as K
+    from friedrich_tpu_torch.ops.covariance import plain_train_covariance_block
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda as pc
+    from friedrich_tpu_torch.ops.panel_fused import plain_panel_strip
+
+    log("== phase 11a: B2 with a separate panel-row operand against its plain version")
+    rng = np.random.default_rng(11)
+    kernels = {"SquaredExp": K.SquaredExp(ls=0.9, ampl=1.3),
+               "Composite": test_kernels()["Composite"]}
+    kinds = (("tf32x3", torch.float32, torch.float32, None),
+             ("one_pass", torch.float32, torch.float32, "bf16"),
+             ("bf16", torch.float32, torch.bfloat16, None),
+             ("f64", torch.float64, torch.float64, None))
+    before = dict(pc.LAUNCHES_TWO_OPERAND)
+    worst = {}
+    for rows, block, j0, row0, ldl, ldb in TWO_OPERAND_CASES:
+        x_np = rng.normal(size=(rows, D))
+        xj_np = rng.normal(size=(block, D))
+        a_np = np.full((rows, ldl), np.nan)
+        a_np[:, :j0] = rng.normal(size=(rows, j0)) * 0.1
+        b_np = np.full((block, ldb), np.nan)
+        b_np[:, :j0] = rng.normal(size=(block, j0)) * 0.1
+        for kind, dtype, pdtype, precision in kinds:
+            f64 = dtype == torch.float64
+            atol, rtol, unit = (ATOL_F64, RTOL_F64, UNIT_ROUNDOFF["float64"]) if f64 else (
+                ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"])
+            split = pc.SPLIT_ERROR if kind == "tf32x3" else 0.0
+            x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
+            xj = torch.as_tensor(xj_np, dtype=dtype, device="cuda")
+            prefix = torch.as_tensor(a_np, dtype=pdtype, device="cuda")[:, :j0]
+            panel_rows = torch.as_tensor(b_np, dtype=pdtype, device="cuda")[:, :max(j0, 1)]
+            if pc.variant(dtype, pdtype, precision) != kind:
+                fail(f"11a: {kind} is not the instantiation of {dtype}, {pdtype}, {precision}")
+            for name, kern in kernels.items():
+                kern = kern.to(dtype, "cuda")
+                for method in ("gram", "gram_bf16", "direct"):
+                    a, r = (ATOL_F32, RTOL_F32) if method == "gram_bf16" else (atol, rtol)
+                    args = (kern, x, xj, None, TWO_OPERAND_N, 0.3, j0, block, method, precision)
+                    got = pc.panel_strip(*args, prefix=prefix, panel_rows=panel_rows, row0=row0)
+                    want = plain_panel_strip(*args, prefix=prefix, panel_rows=panel_rows, row0=row0)
+                    torch.cuda.synchronize()
+                    what = (f"11a {kind} {name} {method} rows={rows} B={block} j0={j0} row0={row0} "
+                            f"ldl={ldl} ldb={ldb}")
+                    if got.shape != (rows, block) or not bool(torch.isfinite(got).all()):
+                        fail(f"{what}: shape {tuple(got.shape)} or non-finite")
+                    # the plain version rounds bfloat16 operands as the kernel reads them
+                    p32 = prefix.to(dtype) if kind != "one_pass" else prefix.to(torch.bfloat16).to(dtype)
+                    q32 = panel_rows.to(dtype) if kind != "one_pass" else panel_rows.to(
+                        torch.bfloat16).to(dtype)
+                    over = strip_excess(got, want, p32, block, a, r, unit, split, panel_rows=q32)
+                    err = float((got - want).abs().max())
+                    if not over <= 0:
+                        fail(f"{what}: max error {err} beyond its tolerance by {over}")
+                    worst[kind] = max(worst.get(kind, 0.0), err)
+    launched = {k: pc.LAUNCHES_TWO_OPERAND[k] - before[k] for k in before}
+    if any(v <= 0 for v in launched.values()):
+        fail(f"11a: an instantiation made no two-operand launch: {launched}")
+    log(json.dumps({"two_operand_parity": {
+        "max_abs_err": worst, "launches": launched, "live_n": TWO_OPERAND_N,
+        "cases": [dict(zip(("rows", "B", "j0", "row0", "ldl", "ldb"), c)) for c in TWO_OPERAND_CASES],
+        "tolerance": "as phase 5a, with |P| |Q|^T of the strip's prefix P and the panel rows Q"}}))
+
+    # ---- one launch at rank 1's middle panel of a two-rank 100,512 factor
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows, block, j0 = TWO_RANK_ROWS, TWO_RANK_B, TWO_RANK_J0
+    kern = K.SquaredExp(ls=0.5, ampl=1.0).to(torch.float32, "cuda")
+    l_local = torch.full((rows, TWO_RANK_CAP), float("nan"), device="cuda")
+    l_local[:, :j0] = torch.randn((rows, j0), device="cuda", generator=g) * 0.1
+    panel_rows = torch.randn((block, j0), device="cuda", generator=g) * 0.1
+    x = torch.randn((rows, D), device="cuda", generator=g)
+    xj = torch.randn((block, D), device="cuda", generator=g)
+    prefix = l_local[:, :j0]
+    row0 = TWO_RANK_CAP - rows
+    n_live = TWO_RANK_CAP - K_ADD
+    args = (kern, x, xj, None, n_live, 1.0, j0, block)
+    kw = {"prefix": prefix, "panel_rows": panel_rows, "row0": row0}
+    got = pc.panel_strip(*args, **kw)
+    want = plain_panel_strip(*args, **kw)
+    err = float((got - want).abs().max())
+    over = strip_excess(got, want, prefix, block, ATOL_F32, RTOL_F32, UNIT_ROUNDOFF["float32"],
+                        pc.SPLIT_ERROR, panel_rows=panel_rows)
+    if not over <= 0:
+        fail(f"11a: the two-operand strip at rank 1's middle panel differs from its plain version: {err}")
+    del got, want
+    k_strip = plain_train_covariance_block(kern, x, xj, n_live, 1.0, row0=row0, col0=j0)
+    times = {"kernel": [], "addmm": []}
+    for _ in range(2):  # kernel and yardstick in turns
+        times["kernel"].append(cuda_ms(lambda: pc.panel_strip(*args, **kw), reps=3))
+        times["addmm"].append(cuda_ms(lambda: torch.addmm(k_strip, prefix, panel_rows.mT, alpha=-1),
+                                      reps=3))
+    ms, library_ms = min(times["kernel"]), min(times["addmm"])
+    plain_ms = cuda_ms(lambda: plain_panel_strip(*args, **kw), reps=3)
+    bound, bound_by = strip_bound_ms(rows, block, j0, D, 4, TF32_FLOPS / 3)
+    row = {
+        "name": "panel_strip_tf32x3_two_operand", "route": "cuda",
+        "source": "friedrich_tpu_torch/csrc/panel_strip.cu",
+        "replaces": "friedrich_tpu/ops/pallas/panel_fused.py:102", "launches": 0,
+        "max_abs_err": max(err, worst["tf32x3"]), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "library_call": "torch.addmm(k_strip, L_rank[:, :j0], panel_rows.T, alpha=-1), float32",
+        "bound": "tensor cores: three TF32 products at 495 TFLOP/s",
+        "shape": f"rank 1 of 2 at capacity {TWO_RANK_CAP}: rows {rows} from row {row0}, B={block}, "
+                 f"j0={j0}, prefix row stride {TWO_RANK_CAP}, d={D}",
+        "kernel_runs_ms": times["kernel"], "library_runs_ms": times["addmm"],
+        "share_of_bound": bound / ms, "over_addmm": ms / library_ms,
+        "max_abs_err_by_instantiation": worst,
+    }
+    log(json.dumps({"phase_11a_two_operand": row}))
+    del l_local, prefix, panel_rows, k_strip, x, xj
+    torch.cuda.empty_cache()
+    return row
+
+
+#: 11b's peak device memory, in factors.
+PEAK_FACTORS_11 = 1.15
+#: 11c: the two ranks' model (9e's size: 5.1 GB of factor a rank) and
+#: their sampler run: 7b's dense density at 1,024 points, 2 chains a rank,
+#: warmup and sampled transitions.
+RANKS_11C, N_11C = 2, 50_000
+CHAINS_11C, WARMUP_11C, SAMPLES_11C, DENSITY_N_11C = 2, 20, 20, 1024
+#: 11c's gates against the world-of-one model of the same points: the
+#: streamed-against-dense gates of phase 5b (LML relative, means and
+#: variances absolute).
+LML_RTOL_11C, MOMENT_ATOL_11C = 1e-4, 1e-3
+#: 11d: the distributed density's sampler at world 1 (7a's data and probes).
+N_11D, WARMUP_11D, SAMPLES_11D = 4096, 10, 10
+#: Seconds 11c's ranks may take before they are stopped and the phase fails.
+RANK_TIMEOUT_S = 600
+
+
+def world_of_one(backend: str = "nccl") -> None:
+    """Set up this process as a world of one rank on the card: a TCP store
+    on 127.0.0.1, the named backend, no fallback."""
+    import torch.distributed as dist
+
+    from friedrich_tpu_torch.parallel import multihost
+
+    info = multihost.initialize(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0, backend=backend,
+                                device="cuda:0")
+    if dist.get_backend() != backend or info["process_count"] != 1:
+        fail(f"the world of one runs {dist.get_backend()} with {info['process_count']} ranks")
+
+
+def phase11_reference(n: int) -> tuple:
+    """For phase 11 alone (``--phase11``): 6a's fitted hyperparameters from
+    the builder's default flow at ``n`` points, the streamed model's 4,096
+    predictions at them (:func:`phase9_reference`) and the float64 witness
+    of its means (:func:`float64_mean_witness`), as phases 6a and 9 give
+    them in the full run."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+
+    x, y, xq = bench_data(n)[:3]
+    log(f"== phase 11 alone: the builder's default flow at n={n} for 6a's fitted hyperparameters")
+    gp = ft.GaussianProcessBuilder(x, y, device="cuda").set_capacity(n + K_ADD).fit_kernel().fit_prior().train()
+    fitted = (gp.prior, gp.kernel.to(torch.float32, "cpu"), gp.noise)
+    del gp
+    torch.cuda.empty_cache()
+    gp = phase9_build("streamed", fitted, x, y, n + K_ADD)
+    mean, var = gp.predict_mean_variance(xq)
+    w_mean, history = float64_mean_witness(gp.state, y, n, xq)
+    del gp
+    torch.cuda.empty_cache()
+    witness = {"mean": w_mean, "history": history,
+               "streamed_mean_err": float(np.abs(mean - w_mean).max())}
+    return fitted, (mean, var, None), witness
+
+
+def large_scale_moments(gp, xq) -> dict:
+    """A ``LargeScaleGP``'s 4,096 predictions and LML, on the host."""
+    mean, var = gp.predict_mean_variance(xq)
+    return {"mean": mean.cpu().numpy(), "var": var.cpu().numpy(),
+            "lml": gp.log_marginal_likelihood()}
+
+
+def phase_large_scale_one(fitted, n: int, ref, witness) -> dict:
+    """11b: ``LargeScaleGP`` on a world of one through NCCL at ``n`` points
+    (capacity n + 512), float32, ``bench.py``'s data and 6a's fitted
+    hyperparameters: the build (one B2 launch per panel, 3xTF32 only), the
+    4,096 predictions held to 9a/9b's gates against the streamed model and
+    the float64 witness, ``fit_scaled(max_iter=2)`` (each refactor in the
+    factor's own buffer) and a 512-point ``add_samples`` up to the
+    capacity; the peak below :data:`PEAK_FACTORS_11` factors."""
+    import torch
+
+    from friedrich_tpu_torch.ops.partition import pick_block
+    from friedrich_tpu_torch.parallel import LargeScaleGP, make_matrix_mesh, multihost
+
+    cap = n + K_ADD
+    log(f"== phase 11b: LargeScaleGP on a world of one through NCCL, n={n}, capacity {cap}, float32, "
+        f"6a's fitted hyperparameters")
+    world_of_one("nccl")
+    mesh = make_matrix_mesh(1)
+    prior, kernel, noise = fitted
+    x, y, xq, x_add, y_add = bench_data(n)[:5]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = {}
+
+    # ---- the main path; both kernels' launches are counted over this run only
+    reset_launches()
+    t0 = sync()
+    gp = LargeScaleGP(mesh, kernel, prior, float(noise), x, y, capacity=cap)
+    steps["build_s"] = sync() - t0
+    build_b2 = variant_launches()
+    t0 = sync()
+    moments = large_scale_moments(gp, torch.as_tensor(xq, device="cuda"))
+    steps["predict_4096_s"] = sync() - t0
+    t0 = sync()
+    gp.fit_scaled(max_iter=2)
+    steps["fit_scaled_2_s"] = sync() - t0
+    steps["lml_fitted"] = gp.log_marginal_likelihood()
+    t0 = sync()
+    gp.add_samples(x_add, y_add)
+    steps["add_samples_s"] = sync() - t0
+    b1, _, b2 = read_launches()
+    by_variant = variant_launches()
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    factor_bytes = cap * cap * 4
+    panels = cap // pick_block(cap, 2048)
+    w_mean = witness["mean"]
+    steps.update({
+        "capacity": cap, "panels": panels, "build_panel_strip_launches": build_b2,
+        "panel_strip_launches_by_variant": by_variant, "covariance_tile_launches": b1,
+        "peak_bytes": peak, "peak_factors": peak / factor_bytes, "lml": moments["lml"],
+        "mean_max_abs_err_vs_float64": float(np.abs(moments["mean"] - w_mean).max()),
+        "streamed_mean_max_abs_err_vs_float64": witness["streamed_mean_err"],
+        "var_max_abs_diff_vs_streamed": float(np.abs(moments["var"] - ref[1]).max()),
+        "var_min": float(moments["var"].min()), "n_after_append": gp.n,
+        "noise": float(gp.noise), "kernel_params": gp.kernel.get_params().tolist(),
+    })
+    log(json.dumps({"phase_11b": steps}))
+    del gp
+    torch.cuda.empty_cache()
+    multihost.shutdown()
+    only_variant(build_b2, "tf32x3", panels, "phase 11b's build (one launch per panel)")
+    only_variant(by_variant, "tf32x3", b2, "phase 11b")
+    if b1 <= 0:
+        fail("phase 11b never launched the covariance kernel")
+    if not (np.isfinite(moments["mean"]).all() and np.isfinite(moments["var"]).all()):
+        fail("phase 11b: non-finite predictions")
+    if steps["var_min"] < -1e-4:
+        fail(f"phase 11b: negative predictive variance {steps['var_min']}")
+    if not steps["mean_max_abs_err_vs_float64"] <= witness["streamed_mean_err"] + 1e-3:
+        fail(f"phase 11b: the mean is {steps['mean_max_abs_err_vs_float64']} from the float64 witness, "
+             f"the streamed model's {witness['streamed_mean_err']} (limit: the streamed model's + 1e-3)")
+    if not steps["var_max_abs_diff_vs_streamed"] <= 1e-3:
+        fail(f"phase 11b: variances differ from the streamed model's by "
+             f"{steps['var_max_abs_diff_vs_streamed']} (limit 1e-3)")
+    if not np.isfinite(steps["lml_fitted"]):
+        fail("phase 11b: the fitted LML is not finite")
+    if steps["n_after_append"] != cap:
+        fail(f"phase 11b: add_samples left {steps['n_after_append']} samples, expected {cap}")
+    if not peak < PEAK_FACTORS_11 * factor_bytes:
+        fail(f"phase 11b: peak device memory {peak} B is not below {PEAK_FACTORS_11} factors")
+    return steps
+
+
+def factor_collectives(ranks: int, cap: int, b: int, d: int, store: str = "float32") -> dict:
+    """What the distributed factorization must send
+    (``tests/test_torch_parallel.py``'s contract): per panel whose owner is
+    not the last rank, the owner's X_j (B, d), its panel rows (B,
+    round_up(j0, 8)) and its (B, B) diagonal block; one flag."""
+    from friedrich_tpu_torch.parallel.distributed_cholesky import ROW_PAD
+
+    rows = cap // ranks
+    want = {"all_reduce (1,) int32": 1}
+    for j0 in range(0, cap, b):
+        if j0 // rows == ranks - 1:
+            continue
+        for shape, dtype in (((b, d), "float32"), ((b, b), "float32"),
+                             ((b, min(-(-j0 // ROW_PAD) * ROW_PAD, cap)), store)):
+            if shape[1]:
+                key = f"broadcast {shape} {dtype}"
+                want[key] = want.get(key, 0) + 1
+    return want
+
+
+def _rank_11c(rank: int, url: str, out_dir: str, n: int, fitted_np: dict, theta_seed: int) -> None:
+    """One rank of 11c, on the one card through gloo: the LargeScaleGP
+    build and predict (launches and collectives of the build counted), then
+    chain-sharded NUTS on 7b's dense density. Writes its results to
+    ``out_dir``; any exception fails the rank (and the phase)."""
+    import traceback
+
+    try:
+        import torch
+
+        from friedrich_tpu_torch.interop import kernel_from_spec, prior_from_spec
+        from friedrich_tpu_torch.mcmc import initial_signs, initial_theta, make_hyperparam_logprob
+        from friedrich_tpu_torch.mcmc.sharded import sample_nuts_sharded
+        from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
+        from friedrich_tpu_torch.parallel import (
+            LargeScaleGP,
+            make_chain_mesh,
+            make_matrix_mesh,
+            multihost,
+        )
+        from friedrich_tpu_torch.parallel.mesh import COLLECTIVES
+
+        multihost.initialize(url, RANKS_11C, rank, backend="gloo", device="cuda:0")
+        mesh = make_matrix_mesh(RANKS_11C)
+        x, y, xq = bench_data(n)[:3]
+        kernel = kernel_from_spec(fitted_np["kernel"])
+        prior = prior_from_spec(fitted_np["prior"])
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        COLLECTIVES.clear()
+        t0 = sync()
+        gp = LargeScaleGP(mesh, kernel, prior, fitted_np["noise"], x, y, capacity=n + K_ADD)
+        build_s = sync() - t0
+        collectives = {f"{kind} {shape} {dtype}": v for (kind, shape, dtype), v in COLLECTIVES.items()}
+        two_operand = dict(panel_strip_cuda.LAUNCHES_TWO_OPERAND)
+        t0 = sync()
+        moments = large_scale_moments(gp, torch.as_tensor(xq, device="cuda"))
+        predict_s = sync() - t0
+        b1, _, b2 = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        rows = gp.l_local.shape[0]
+        del gp
+        torch.cuda.empty_cache()
+        # chain-sharded NUTS on 7b's dense density
+        state = sampler_model(DENSITY_N_11C).state
+        logp = make_hyperparam_logprob(state, signs=initial_signs(state))
+        t0 = sync()
+        res = sample_nuts_sharded(make_chain_mesh(RANKS_11C), logp, initial_theta(state), theta_seed,
+                                  num_chains=CHAINS_11C * RANKS_11C, num_warmup=WARMUP_11C,
+                                  num_samples=SAMPLES_11C, max_depth=SAMPLER_MAX_DEPTH)
+        nuts_s = sync() - t0
+        np.savez(os.path.join(out_dir, f"{rank}.npz"), mean=moments["mean"], var=moments["var"],
+                 samples=res.samples.cpu().numpy())
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "lml": moments["lml"], "build_s": build_s, "predict_4096_s": predict_s,
+                       "collectives": collectives, "two_operand_launches": two_operand,
+                       "panel_strip_launches": b2, "covariance_tile_launches": b1, "peak_bytes": peak,
+                       "rows": rows, "nuts_s": nuts_s, "step_size": float(res.step_size),
+                       "inv_mass": res.inv_mass.tolist(),
+                       "divergent": int(res.divergent.sum())}, f)
+        multihost.shutdown()
+    except Exception:  # written for the parent, then the rank fails
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def phase_two_ranks(fitted) -> dict:
+    """11c: two ranks on the one card through gloo, spawned after the
+    kernels are built: ``LargeScaleGP`` at n = 50,000 (capacity 50,512)
+    built and predicting, held against a world-of-one model of the same
+    points (LML within 1e-4 relative, means and variances within 1e-3);
+    rank 1's two-operand B2 launches (more than 0); the build's collectives
+    against the contract; chain-sharded NUTS on 7b's dense density, whose
+    pooled step size must be the same on both ranks."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from friedrich_tpu_torch.ops.partition import pick_block
+    from friedrich_tpu_torch.parallel import LargeScaleGP, make_matrix_mesh, multihost
+
+    n, cap = N_11C, N_11C + K_ADD
+    log(f"== phase 11c: {RANKS_11C} ranks on the one card through gloo, LargeScaleGP at n={n}, "
+        f"capacity {cap}; chain-sharded NUTS on 7b's dense density")
+    from friedrich_tpu_torch.interop import kernel_spec, prior_spec
+
+    prior, kernel, noise = fitted
+    fitted_np = {"kernel": kernel_spec(kernel), "prior": prior_spec(prior), "noise": float(noise)}
+    x, y, xq = bench_data(n)[:3]
+    # the world-of-one model of the same points
+    world_of_one("nccl")
+    t0 = sync()
+    gp = LargeScaleGP(make_matrix_mesh(1), kernel, prior, float(noise), x, y, capacity=cap)
+    one_build_s = sync() - t0
+    one = large_scale_moments(gp, torch.as_tensor(xq, device="cuda"))
+    del gp
+    torch.cuda.empty_cache()
+    multihost.shutdown()
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_11c_")
+    url = f"tcp://127.0.0.1:{multihost.free_port()}"
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_rank_11c, args=(r, url, out_dir, n, fitted_np, 7))
+             for r in range(RANKS_11C)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    errors = [open(os.path.join(out_dir, f"{r}.err")).read() for r in range(RANKS_11C)
+              if os.path.exists(os.path.join(out_dir, f"{r}.err"))]
+    if errors or any(p.exitcode != 0 for p in procs):
+        fail(f"phase 11c: a rank failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    ranks = []
+    for r in range(RANKS_11C):
+        with open(os.path.join(out_dir, f"{r}.json")) as f:
+            info = json.load(f)
+        arrays = np.load(os.path.join(out_dir, f"{r}.npz"))
+        info.update({k: arrays[k] for k in arrays.files})
+        ranks.append(info)
+    b = pick_block(cap // RANKS_11C, 2048)
+    want = factor_collectives(RANKS_11C, cap, b, D)
+    r0 = ranks[0]
+    steps = {
+        "ranks": RANKS_11C, "capacity": cap, "panel": b, "wall_s": wall,
+        "world_of_one_build_s": one_build_s, "lml": r0["lml"], "lml_world_of_one": one["lml"],
+        "lml_rel_diff": abs(r0["lml"] - one["lml"]) / abs(one["lml"]),
+        "mean_max_abs_diff": float(np.abs(r0["mean"] - one["mean"]).max()),
+        "var_max_abs_diff": float(np.abs(r0["var"] - one["var"]).max()),
+        "per_rank": [{k: v for k, v in info.items() if k not in ("mean", "var", "samples")}
+                     for info in ranks],
+        "collectives_expected": want,
+    }
+    log(json.dumps({"phase_11c": steps}))
+    for info in ranks:
+        if info["collectives"] != want:
+            fail(f"phase 11c: rank {info['rank']}'s build sent {info['collectives']}, the contract {want}")
+        if not np.array_equal(info["mean"], r0["mean"]) or not np.array_equal(info["var"], r0["var"]):
+            fail(f"phase 11c: rank {info['rank']}'s predictions differ from rank 0's")
+        if info["step_size"] != r0["step_size"] or info["inv_mass"] != r0["inv_mass"]:
+            fail(f"phase 11c: rank {info['rank']}'s pooled step size {info['step_size']} or mass differs "
+                 f"from rank 0's {r0['step_size']}")
+        if not np.isfinite(info["samples"]).all():
+            fail(f"phase 11c: rank {info['rank']} drew non-finite samples")
+    per_rank = cap // RANKS_11C // b
+    for info in ranks:
+        # every strip of the rank's rows at or below a panel is one B2 launch,
+        # its rows of the predict's cross-covariance one B1 launch
+        if info["panel_strip_launches"] != (info["rank"] + 1) * per_rank:
+            fail(f"phase 11c: rank {info['rank']} made {info['panel_strip_launches']} B2 launches, "
+                 f"expected {(info['rank'] + 1) * per_rank}")
+        if not info["covariance_tile_launches"] > 0:
+            fail(f"phase 11c: rank {info['rank']} never launched the covariance kernel")
+    below = ranks[1]["two_operand_launches"]
+    if not below["tf32x3"] > 0 or sum(below.values()) != below["tf32x3"]:
+        fail(f"phase 11c: rank 1 made two-operand B2 launches {below}; some 3xTF32 and no other")
+    if ranks[0]["two_operand_launches"]["tf32x3"] != 0:
+        fail("phase 11c: rank 0 (above every panel of rank 1) made two-operand launches")
+    if not steps["lml_rel_diff"] <= LML_RTOL_11C:
+        fail(f"phase 11c: LML {r0['lml']} differs from the world of one's {one['lml']} by more than "
+             f"{LML_RTOL_11C} relative")
+    if not (steps["mean_max_abs_diff"] <= MOMENT_ATOL_11C and steps["var_max_abs_diff"] <= MOMENT_ATOL_11C):
+        fail(f"phase 11c: means differ from the world of one's by {steps['mean_max_abs_diff']}, variances "
+             f"by {steps['var_max_abs_diff']} (limit {MOMENT_ATOL_11C})")
+    return {"steps": steps, "launches": sum(info["panel_strip_launches"] for info in ranks),
+            "two_operand_launches": below["tf32x3"],
+            "covariance_tile_launches": sum(info["covariance_tile_launches"] for info in ranks)}
+
+
+def phase_distributed_sampler() -> dict:
+    """11d: ``sample_hyperparameters_distributed`` on a world of one (NCCL)
+    at 7a's n = 4,096: one chain, 10 + 10 transitions, 64 probes, the
+    distributed density's factorization B2 (3xTF32); every draw finite."""
+    import torch
+
+    from friedrich_tpu_torch.mcmc.distributed_logprob import sample_hyperparameters_distributed
+    from friedrich_tpu_torch.parallel import make_matrix_mesh, multihost
+
+    log(f"== phase 11d: sample_hyperparameters_distributed, world of one, n={N_11D}, 1 chain, "
+        f"{WARMUP_11D}+{SAMPLES_11D} transitions, {SAMPLER_PROBES} probes")
+    world_of_one("nccl")
+    state = sampler_model(N_11D).state
+    reset_launches()
+    t0 = sync()
+    res = sample_hyperparameters_distributed(make_matrix_mesh(1), state, 0, num_warmup=WARMUP_11D,
+                                             num_samples=SAMPLES_11D, num_chains=1,
+                                             max_depth=SAMPLER_MAX_DEPTH, num_probes=SAMPLER_PROBES)
+    seconds = sync() - t0
+    by_variant = variant_launches()
+    multihost.shutdown()
+    steps = {"seconds": seconds, "transitions_per_s": (WARMUP_11D + SAMPLES_11D) / seconds,
+             "step_size": res.step_size.tolist(), "divergent": int(res.divergent.sum()),
+             "mean_tree_depth": float(res.tree_depth.float().mean()),
+             "panel_strip_launches_by_variant": by_variant,
+             "samples_mean": res.samples.mean(dim=(0, 1)).tolist()}
+    log(json.dumps({"phase_11d": steps}))
+    if res.samples.shape != (SAMPLES_11D, 1, 3) or not bool(torch.isfinite(res.samples).all()):
+        fail(f"phase 11d: draws of shape {tuple(res.samples.shape)} or not finite")
+    if not by_variant["tf32x3"] > 0 or sum(by_variant.values()) != by_variant["tf32x3"]:
+        fail(f"phase 11d: the distributed density's launches {by_variant}; some 3xTF32 and no other")
+    return {"steps": steps, "launches": by_variant["tf32x3"]}
+
+
+def phase_eleven(fitted, n: int, ref, witness, entry: dict, streamed_entry: dict) -> dict:
+    """Phase 11 in order; the kernel line's entries gain its launches.
+    Returns 11a's two-operand row."""
+    t11 = time.perf_counter()
+    row = phase_two_operand()
+    one = phase_large_scale_one(fitted, n, ref, witness)
+    two = phase_two_ranks(fitted)
+    sampled = phase_distributed_sampler()
+    streamed_entry["launches_11b_world_of_one"] = one["panel_strip_launches_by_variant"]["tf32x3"]
+    streamed_entry["launches_11c_two_ranks"] = two["launches"]
+    streamed_entry["launches_11d_distributed_density"] = sampled["launches"]
+    entry["launches_11b_world_of_one"] = one["covariance_tile_launches"]
+    entry["launches_11c_two_ranks"] = two["covariance_tile_launches"]
+    row["launches"] = two["two_operand_launches"]
+    log(f"phase 11 took {time.perf_counter() - t11} s")
+    return row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--n", type=int, default=50_000,
@@ -3675,6 +4217,9 @@ def main() -> int:
                         help="only time B2 at the main path's panels (panel_times) and exit")
     parser.add_argument("--errors", action="store_true",
                         help="with --panel-times, also the downdate errors against float64")
+    parser.add_argument("--phase11", action="store_true",
+                        help="only phase 1 and phase 11 (the multi-rank layer; its reference "
+                             "model fitted here) and exit")
     args = parser.parse_args()
 
     import torch
@@ -3688,6 +4233,14 @@ def main() -> int:
         panel_times(args.errors)
         return 0
     phase_environment()
+    if args.phase11:
+        fitted, ref, witness = phase11_reference(args.streamed_n)
+        b1_counts: dict = {}
+        b2_counts: dict = {}
+        row = phase_eleven(fitted, args.streamed_n, ref, witness, b1_counts, b2_counts)
+        log(json.dumps({"phase_11_launches": {"covariance_tile": b1_counts, "panel_strip": b2_counts},
+                        "two_operand": row}))
+        return 0
     phase_kernel_vs_plain()
     phase_parity()
     entry, fitted = phase_full_width(args.n)
@@ -3791,9 +4344,12 @@ def main() -> int:
     entry["max_abs_err"] = max(entry["max_abs_err"], flow_10["b1"][1]["max_abs_err"])
     entry["launches_10_float64"] = flow_10["steps"]["covariance_tile_launches"]
     log(f"phase 10 took {time.perf_counter() - t10} s")
+    torch.cuda.empty_cache()
+    two_operand_entry = phase_eleven(fitted_6a, args.streamed_n, ref, tiled["witness"], entry,
+                                     streamed_entry)
     log(smi_line())
     log(json.dumps({"kernels": [entry, streamed_entry, bf16_entry, one_pass_entry, explicit_entry,
-                                f64_entry]}))
+                                f64_entry, two_operand_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

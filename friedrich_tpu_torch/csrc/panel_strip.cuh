@@ -443,21 +443,25 @@ __device__ __forceinline__ void split_b(unsigned char* tile, unsigned char* lo, 
 }
 
 // Starts the load of stage k into its ring slot: TMA from thread 0 (the
-// slot's full barrier expects the bytes), or cp.async from every thread
-// (each arrives once its copies have landed).
+// slot's full barrier expects the bytes; A through `amap`, B through
+// `bmap`), or cp.async from every thread (each arrives once its copies have
+// landed; A from `la`, row stride ldl, B from `lb`, row stride ldb).
 template <bool TMA>
 __device__ __forceinline__ void load_stage(unsigned char* smem, uint64_t* full_bar, int k,
-                                           int tid, const CUtensorMap* lmap,
-                                           const float* __restrict__ la, int m1, long long ldl,
-                                           int kdim, int rbase, int cbase) {
+                                           int tid, const CUtensorMap* amap,
+                                           const CUtensorMap* bmap,
+                                           const float* __restrict__ la,
+                                           const float* __restrict__ lb, int m1, int m2,
+                                           long long ldl, long long ldb, int kdim, int rbase,
+                                           int cbase) {
   using namespace tc;
   const int s = k % STAGES;
   unsigned char* stage = smem + s * STAGE_BYTES;
   if (TMA) {
     if (tid == 0) {
       mbar_expect_tx(&full_bar[s], STAGE_BYTES);
-      tma_load(stage, lmap, &full_bar[s], k * BK, rbase);
-      tma_load(stage + TILE_BYTES, lmap, &full_bar[s], k * BK, cbase);
+      tma_load(stage, amap, &full_bar[s], k * BK, rbase);
+      tma_load(stage + TILE_BYTES, bmap, &full_bar[s], k * BK, cbase);
     }
   } else {
     // the layout TMA writes: 16-byte chunk c / 4 of row r at chunk (c / 4) ^ (r % 8)
@@ -468,8 +472,9 @@ __device__ __forceinline__ void load_stage(unsigned char* smem, uint64_t* full_b
       const int c = e % BK;
       const int row = (op ? cbase : rbase) + r;
       const int kk = k0 + c;
-      const bool valid = row < m1 && kk < kdim;
-      const float* src = la + (valid ? (long long)row * ldl + kk : 0);
+      const bool valid = row < (op ? m2 : m1) && kk < kdim;
+      const float* src = valid ? (op ? lb + (long long)row * ldb : la + (long long)row * ldl) + kk
+                               : la;
       const int off = r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
       cp_async4(stage + op * TILE_BYTES + off, src, valid);
     }
@@ -555,16 +560,21 @@ __device__ __forceinline__ void store_strip(unsigned char* smem, const float (&a
                                                   sprm);
 }
 
-// `lmap` covers the strip's rows L[j0:cap, 0:j0] (TMA path); `la` points at
-// their first element (cp.async path). The strip's columns are its first
-// m2 rows.
+// `amap` covers the strip's rows (A: m1 rows, row stride ldl, the first
+// kdim columns) and `bmap` the panel's rows (B: m2 rows, row stride ldb),
+// for the TMA path; `la` and `lb` point at their first elements (cp.async
+// path). In the streamed factorization B is A's first m2 rows and both maps
+// are one; a rank of the distributed factorization below the panel passes
+// the panel's rows as their own operand.
 template <int METHOD, bool TMA>
 __global__ void __launch_bounds__(tc::THREADS, 1)
-    panel_strip_tf32x3_kernel(const __grid_constant__ CUtensorMap lmap,
+    panel_strip_tf32x3_kernel(const __grid_constant__ CUtensorMap amap,
+                              const __grid_constant__ CUtensorMap bmap,
                               const float* __restrict__ x1, const float* __restrict__ x2,
-                              const float* __restrict__ la, float* __restrict__ out, int m1,
-                              int m2, int d, long long ldl, int kdim, long long row0,
-                              long long col0, long long n, float noise, int needs,
+                              const float* __restrict__ la, const float* __restrict__ lb,
+                              float* __restrict__ out, int m1, int m2, int d, long long ldl,
+                              long long ldb, int kdim, long long row0, long long col0,
+                              long long n, float noise, int needs,
                               const __grid_constant__ CovProgram prog) {
   using namespace tc;
   extern __shared__ unsigned char smem_dyn[];
@@ -591,7 +601,8 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
   }
   __syncthreads();
   for (int k = 0; k < STAGES && k < num_k; ++k) {
-    load_stage<TMA>(smem, full_bar, k, tid, &lmap, la, m1, ldl, kdim, rbase, cbase);
+    load_stage<TMA>(smem, full_bar, k, tid, &amap, &bmap, la, lb, m1, m2, ldl, ldb, kdim, rbase,
+                    cbase);
   }
 
   // Each stage's 32-deep product goes into a fresh tensor-core
@@ -644,7 +655,8 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     // its slot takes the stage STAGES ahead
     asm volatile("bar.sync 1, 256;" ::: "memory");
     if (kb + STAGES < num_k) {
-      load_stage<TMA>(smem, full_bar, kb + STAGES, tid, &lmap, la, m1, ldl, kdim, rbase, cbase);
+      load_stage<TMA>(smem, full_bar, kb + STAGES, tid, &amap, &bmap, la, lb, m1, m2, ldl, ldb,
+                      kdim, rbase, cbase);
     }
   }
 
@@ -845,9 +857,10 @@ __device__ __forceinline__ void load_a_bf16(const unsigned char* a_tile, int row
   }
 }
 
-// The single pass's B operand, made once per launch: the strip's first rows
-// L[j0:j0+m2, :kdim] (one block row per row, row stride ldl) rounded to
-// bfloat16 into `dst` (row stride ldb, a multiple of 8).
+// The single pass's B operand, made once per launch: the panel's rows (one
+// block row per row, row stride ldl; the strip's first rows in the streamed
+// factorization) rounded to bfloat16 into `dst` (row stride ldb, a multiple
+// of 8).
 __global__ void bf16_rows_kernel(const float* __restrict__ la, long long ldl, int kdim,
                                  uint32_t* __restrict__ dst, int ldb) {
   const float* src = la + (long long)blockIdx.y * ldl;
@@ -1141,9 +1154,12 @@ __device__ __forceinline__ void cp_async8(void* dst, const double* src, bool val
 // arrives once its copies have landed).
 template <bool TMA>
 __device__ __forceinline__ void load_stage_f64(unsigned char* smem, uint64_t* full_bar, int k,
-                                               int tid, const CUtensorMap* lmap,
-                                               const double* __restrict__ la, int m1, int m2,
-                                               long long ldl, int kdim, int rbase, int cbase) {
+                                               int tid, const CUtensorMap* amap,
+                                               const CUtensorMap* bmap,
+                                               const double* __restrict__ la,
+                                               const double* __restrict__ lb, int m1, int m2,
+                                               long long ldl, long long ldb, int kdim, int rbase,
+                                               int cbase) {
   using namespace dm;
   const int s = k % STAGES;
   unsigned char* stage = smem + s * STAGE_BYTES;
@@ -1152,8 +1168,8 @@ __device__ __forceinline__ void load_stage_f64(unsigned char* smem, uint64_t* fu
       mbar_expect_tx(&full_bar[s], STAGE_BYTES);
 #pragma unroll
       for (int h = 0; h < BK / BOX_K; ++h) {
-        tma_load(stage + h * BOX_BYTES, lmap, &full_bar[s], k * BK + h * BOX_K, rbase);
-        tma_load(stage + OPERAND_BYTES + h * BOX_BYTES, lmap, &full_bar[s], k * BK + h * BOX_K,
+        tma_load(stage + h * BOX_BYTES, amap, &full_bar[s], k * BK + h * BOX_K, rbase);
+        tma_load(stage + OPERAND_BYTES + h * BOX_BYTES, bmap, &full_bar[s], k * BK + h * BOX_K,
                  cbase);
       }
     }
@@ -1166,7 +1182,8 @@ __device__ __forceinline__ void load_stage_f64(unsigned char* smem, uint64_t* fu
       const int row = (op ? cbase : rbase) + r;
       const int kk = k0 + c;
       const bool valid = row < (op ? m2 : m1) && kk < kdim;
-      const double* src = la + (valid ? (long long)row * ldl + kk : 0);
+      const double* src =
+          valid ? (op ? lb + (long long)row * ldb : la + (long long)row * ldl) + kk : la;
       const int q = (c % BOX_K) >> 1;  // the 16-byte chunk in the box row
       const int off = op * OPERAND_BYTES + (c / BOX_K) * BOX_BYTES + r * 128 +
                       ((q ^ (r & 7)) << 4) + ((c & 1) << 3);
@@ -1225,17 +1242,20 @@ __device__ __forceinline__ void warp_box(double (&acc)[4][4][4], const unsigned 
   }
 }
 
-// `lmap` covers the strip's rows L[j0:j0+m1, 0:kdim] (TMA path); `la` points
-// at their first element (cp.async path). The strip's columns are its first
-// m2 rows.
+// `amap` covers the strip's rows (A: m1 rows, row stride ldl, the first
+// kdim columns) and `bmap` the panel's rows (B: m2 rows, row stride ldb),
+// for the TMA path; `la` and `lb` point at their first elements (cp.async
+// path). As in the 3xTF32 kernel, B is A's first rows in the streamed
+// factorization and its own operand below the panel's rank.
 template <int METHOD, bool TMA>
 __global__ void __launch_bounds__(dm::THREADS, 1)
-    panel_strip_f64_kernel(const __grid_constant__ CUtensorMap lmap,
+    panel_strip_f64_kernel(const __grid_constant__ CUtensorMap amap,
+                           const __grid_constant__ CUtensorMap bmap,
                            const double* __restrict__ x1, const double* __restrict__ x2,
-                           const double* __restrict__ la, double* __restrict__ out, int m1,
-                           int m2, int d, long long ldl, int kdim, long long row0,
-                           long long col0, long long n, double noise, int needs,
-                           const __grid_constant__ CovProgram prog) {
+                           const double* __restrict__ la, const double* __restrict__ lb,
+                           double* __restrict__ out, int m1, int m2, int d, long long ldl,
+                           long long ldb, int kdim, long long row0, long long col0, long long n,
+                           double noise, int needs, const __grid_constant__ CovProgram prog) {
   using namespace dm;
   extern __shared__ unsigned char smem_dyn[];
   __shared__ __align__(8) uint64_t full_bar[STAGES];
@@ -1264,7 +1284,8 @@ __global__ void __launch_bounds__(dm::THREADS, 1)
   }
   __syncthreads();
   for (int k = 0; k < STAGES && k < num_k; ++k) {
-    load_stage_f64<TMA>(smem, full_bar, k, tid, &lmap, la, m1, m2, ldl, kdim, rbase, cbase);
+    load_stage_f64<TMA>(smem, full_bar, k, tid, &amap, &bmap, la, lb, m1, m2, ldl, ldb, kdim,
+                        rbase, cbase);
   }
 
   const int warp = tid / 32, lane = tid % 32;
@@ -1287,8 +1308,8 @@ __global__ void __launch_bounds__(dm::THREADS, 1)
     // every warp is done with the slot: it takes the stage STAGES ahead
     __syncthreads();
     if (kb + STAGES < num_k) {
-      load_stage_f64<TMA>(smem, full_bar, kb + STAGES, tid, &lmap, la, m1, m2, ldl, kdim, rbase,
-                          cbase);
+      load_stage_f64<TMA>(smem, full_bar, kb + STAGES, tid, &amap, &bmap, la, lb, m1, m2, ldl,
+                          ldb, kdim, rbase, cbase);
     }
   }
 
@@ -1355,45 +1376,71 @@ inline bool encode_map(CUtensorMap* map, const void* base, CUtensorMapDataType t
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Whether TMA can read rows of `elem`-byte entries at `base` with row stride
+// `ld` elements: a 16-byte aligned base and row stride.
+inline bool tma_aligned(const void* base, long long ld, int elem) {
+  return (ld * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
+}
+
+// The operand pairing of a launch. One operand (`lb == la`, ldb == ldl): the
+// strip's columns are its own first m2 rows, so m2 <= m1, and one map serves
+// both (the streamed factorization). Two operands: `lb` holds the panel's m2
+// rows, any m2 (a rank of the distributed factorization below the panel).
+inline bool operands_ok(const void* la, const void* lb, long long ldl, long long ldb, int m1,
+                        int m2, int kdim) {
+  if (lb == la) return ldb == ldl && m2 <= m1;
+  return ldb >= kdim && ldl >= kdim;
+}
+
 template <int METHOD, bool TMA>
-cudaError_t launch_tf32x3_as(const CUtensorMap& map, const float* x1, const float* x2,
-                             const float* la, float* out, int m1, int m2, int d, long long ldl,
-                             int kdim, long long row0, long long col0, long long n, float noise,
-                             int needs, const CovProgram& prog, cudaStream_t s) {
+cudaError_t launch_tf32x3_as(const CUtensorMap& amap, const CUtensorMap& bmap, const float* x1,
+                             const float* x2, const float* la, const float* lb, float* out,
+                             int m1, int m2, int d, long long ldl, long long ldb, int kdim,
+                             long long row0, long long col0, long long n, float noise, int needs,
+                             const CovProgram& prog, cudaStream_t s) {
   const dim3 grid((m2 + tc::BN - 1) / tc::BN, (m1 + tc::BM - 1) / tc::BM);
   auto kernel = panel_strip_tf32x3_kernel<METHOD, TMA>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, tc::THREADS, tc::SMEM_BYTES, s>>>(map, x1, x2, la, out, m1, m2, d, ldl, kdim,
-                                                   row0, col0, n, noise, needs, prog);
+  kernel<<<grid, tc::THREADS, tc::SMEM_BYTES, s>>>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl,
+                                                   ldb, kdim, row0, col0, n, noise, needs, prog);
   return cudaGetLastError();
 }
 
 // One launch of the 3xTF32 instantiation. `la` points at m1 float32 prefix
-// rows (row stride `ldl`) whose first `kdim` columns are contracted; the
-// strip's columns are its first m2 rows, so `lb` must equal `la`.
+// rows (row stride `ldl`) and `lb` at the panel's m2 rows (row stride
+// `ldb`), whose first `kdim` columns are contracted (operands_ok). TMA where
+// both operands are 16-byte aligned, cp.async elsewhere.
 inline int launch_tf32x3(const float* x1, const float* x2, const float* la, const float* lb,
-                         float* out, int m1, int m2, int d, long long ldl, int kdim,
-                         long long row0, long long col0, long long n, double noise, int method,
-                         int needs, const CovProgram& prog, cudaStream_t s) {
-  // one map over the strip's rows: its columns must be its first rows
-  if (lb != la || m2 > m1) return static_cast<int>(cudaErrorInvalidValue);
+                         float* out, int m1, int m2, int d, long long ldl, long long ldb,
+                         int kdim, long long row0, long long col0, long long n, double noise,
+                         int method, int needs, const CovProgram& prog, cudaStream_t s) {
+  if (!operands_ok(la, lb, ldl, ldb, m1, m2, kdim)) return static_cast<int>(cudaErrorInvalidValue);
   if ((m1 + tc::BM - 1) / tc::BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map;
-  std::memset(&map, 0, sizeof(map));
-  // TMA needs a 16-byte aligned base and row stride
-  const bool tma = (ldl * 4) % 16 == 0 && reinterpret_cast<uintptr_t>(la) % 16 == 0;
-  if (tma && kdim > 0 &&
-      !encode_map(&map, la, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ldl, kdim, m1, tc::BK, tc::BM)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap amap, bmap;
+  std::memset(&amap, 0, sizeof(amap));
+  std::memset(&bmap, 0, sizeof(bmap));
+  const bool tma = tma_aligned(la, ldl, 4) && tma_aligned(lb, ldb, 4);
+  if (tma && kdim > 0) {
+    if (!encode_map(&amap, la, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ldl, kdim, m1, tc::BK, tc::BM)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // one operand: the same map serves B (its rows past m2 only reach
+    // columns the epilogue masks)
+    if (lb == la) {
+      bmap = amap;
+    } else if (!encode_map(&bmap, lb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ldb, kdim, m2, tc::BK,
+                           tc::BN)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   const float nz = static_cast<float>(noise);
-#define FRIEDRICH_TF32X3(M)                                                                  \
-  (tma ? launch_tf32x3_as<M, true>(map, x1, x2, la, out, m1, m2, d, ldl, kdim, row0, col0, n, \
-                                   nz, needs, prog, s)                                       \
-       : launch_tf32x3_as<M, false>(map, x1, x2, la, out, m1, m2, d, ldl, kdim, row0, col0, n, \
-                                    nz, needs, prog, s))
+#define FRIEDRICH_TF32X3(M)                                                                    \
+  (tma ? launch_tf32x3_as<M, true>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb, kdim, \
+                                   row0, col0, n, nz, needs, prog, s)                          \
+       : launch_tf32x3_as<M, false>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb, kdim, \
+                                    row0, col0, n, nz, needs, prog, s))
   cudaError_t err;
   switch (method) {
     case GRAM: err = FRIEDRICH_TF32X3(GRAM); break;
@@ -1429,25 +1476,27 @@ cudaError_t launch_ws_as(const CUtensorMap& amap, const CUtensorMap& bmap, const
 }
 
 // One launch of a bfloat16-product instantiation: FEED_BF16, `la` m1 rows
-// of a bfloat16 prefix (row stride `ldl` elements); FEED_F32, m1 float32
-// rows, whose first m2 are rounded into `scratch` first (m2 rows of
-// round_up(kdim, 8) bfloat16, the caller's buffer). The strip's columns are
-// the prefix's first m2 rows, so `lb` must equal `la`.
+// of a bfloat16 prefix (row stride `ldl` elements) and `lb` the panel's m2
+// rows (row stride `ldb`); FEED_F32, float32 rows, the panel's m2 rounded
+// into `scratch` first (m2 rows of round_up(kdim, 8) bfloat16, the caller's
+// buffer). One operand (`lb == la`) or two, as operands_ok says.
 template <int FEED>
 int launch_ws(const float* x1, const float* x2, const void* la, const void* lb, void* scratch,
-              float* out, int m1, int m2, int d, long long ldl, int kdim, long long row0,
-              long long col0, long long n, double noise, int method, int needs,
+              float* out, int m1, int m2, int d, long long ldl, long long ldb_in, int kdim,
+              long long row0, long long col0, long long n, double noise, int method, int needs,
               const CovProgram& prog, cudaStream_t s) {
-  if (lb != la || m2 > m1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!operands_ok(la, lb, ldl, ldb_in, m1, m2, kdim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   constexpr bool bf16 = FEED == FEED_BF16;
-  const uint16_t* b_rows = static_cast<const uint16_t*>(la);
-  long long ldb = ldl;
+  const uint16_t* b_rows = static_cast<const uint16_t*>(lb);
+  long long ldb = ldb_in;
   if (!bf16 && kdim > 0) {
     if (scratch == nullptr || m2 > 65535) return static_cast<int>(cudaErrorInvalidValue);
     ldb = (kdim + 7) / 8 * 8;
     const int pairs = (kdim + 1) / 2;
     bf16_rows_kernel<<<dim3((pairs + 255) / 256, m2), 256, 0, s>>>(
-        static_cast<const float*>(la), ldl, kdim, static_cast<uint32_t*>(scratch),
+        static_cast<const float*>(lb), ldb_in, kdim, static_cast<uint32_t*>(scratch),
         static_cast<int>(ldb));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1456,8 +1505,8 @@ int launch_ws(const float* x1, const float* x2, const void* la, const void* lb, 
   CUtensorMap amap, bmap;
   std::memset(&amap, 0, sizeof(amap));
   std::memset(&bmap, 0, sizeof(bmap));
-  // TMA needs a 16-byte aligned base and row stride (the copy has both)
-  const bool tma = (ldl * (bf16 ? 2 : 4)) % 16 == 0 && reinterpret_cast<uintptr_t>(la) % 16 == 0;
+  // TMA needs 16-byte aligned bases and row strides (the copy has both)
+  const bool tma = tma_aligned(la, ldl, bf16 ? 2 : 4) && tma_aligned(b_rows, ldb, 2);
   if (tma && kdim > 0 &&
       !(encode_map(&amap, la, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                    ldl, kdim, m1, bf16 ? ws::BK : ws::BK / 2, ws::BM) &&
@@ -1488,10 +1537,11 @@ int launch_ws(const float* x1, const float* x2, const void* la, const void* lb, 
 }
 
 template <int METHOD, bool TMA>
-cudaError_t launch_f64_as(const CUtensorMap& map, const double* x1, const double* x2,
-                          const double* la, double* out, int m1, int m2, int d, long long ldl,
-                          int kdim, long long row0, long long col0, long long n, double noise,
-                          int needs, const CovProgram& prog, cudaStream_t s) {
+cudaError_t launch_f64_as(const CUtensorMap& amap, const CUtensorMap& bmap, const double* x1,
+                          const double* x2, const double* la, const double* lb, double* out,
+                          int m1, int m2, int d, long long ldl, long long ldb, int kdim,
+                          long long row0, long long col0, long long n, double noise, int needs,
+                          const CovProgram& prog, cudaStream_t s) {
   auto kernel = panel_strip_f64_kernel<METHOD, TMA>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dm::SMEM_BYTES);
@@ -1499,32 +1549,41 @@ cudaError_t launch_f64_as(const CUtensorMap& map, const double* x1, const double
   const long long tiles = (long long)((m1 + dm::BM - 1) / dm::BM) * ((m2 + dm::BN - 1) / dm::BN);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(tiles), dm::THREADS, dm::SMEM_BYTES, s>>>(
-      map, x1, x2, la, out, m1, m2, d, ldl, kdim, row0, col0, n, noise, needs, prog);
+      amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb, kdim, row0, col0, n, noise, needs,
+      prog);
   return cudaGetLastError();
 }
 
 // One launch of the float64 instantiation. `la` points at m1 float64 prefix
-// rows (row stride `ldl`) whose first `kdim` columns are contracted; the
-// strip's columns are its first m2 rows, so `lb` must equal `la`. TMA where
-// the base and the row stride are 16-byte aligned, cp.async elsewhere (an
-// odd capacity, an explicit prefix of odd width).
+// rows (row stride `ldl`) and `lb` at the panel's m2 rows (row stride
+// `ldb`), whose first `kdim` columns are contracted (operands_ok). TMA where
+// both operands are 16-byte aligned, cp.async elsewhere (an odd capacity, an
+// explicit prefix of odd width).
 inline int launch_f64(const double* x1, const double* x2, const double* la, const double* lb,
-                      double* out, int m1, int m2, int d, long long ldl, int kdim, long long row0,
-                      long long col0, long long n, double noise, int method, int needs,
-                      const CovProgram& prog, cudaStream_t s) {
-  if (lb != la || m2 > m1) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map;
-  std::memset(&map, 0, sizeof(map));
-  const bool tma = (ldl * 8) % 16 == 0 && reinterpret_cast<uintptr_t>(la) % 16 == 0;
-  if (tma && kdim > 0 &&
-      !encode_map(&map, la, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, ldl, kdim, m1, dm::BOX_K, dm::BM)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+                      double* out, int m1, int m2, int d, long long ldl, long long ldb, int kdim,
+                      long long row0, long long col0, long long n, double noise, int method,
+                      int needs, const CovProgram& prog, cudaStream_t s) {
+  if (!operands_ok(la, lb, ldl, ldb, m1, m2, kdim)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap amap, bmap;
+  std::memset(&amap, 0, sizeof(amap));
+  std::memset(&bmap, 0, sizeof(bmap));
+  const bool tma = tma_aligned(la, ldl, 8) && tma_aligned(lb, ldb, 8);
+  if (tma && kdim > 0) {
+    if (!encode_map(&amap, la, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, ldl, kdim, m1, dm::BOX_K, dm::BM)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (lb == la) {
+      bmap = amap;
+    } else if (!encode_map(&bmap, lb, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, ldb, kdim, m2, dm::BOX_K,
+                           dm::BN)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-#define FRIEDRICH_F64(M)                                                                         \
-  (tma ? launch_f64_as<M, true>(map, x1, x2, la, out, m1, m2, d, ldl, kdim, row0, col0, n, noise, \
-                                needs, prog, s)                                                   \
-       : launch_f64_as<M, false>(map, x1, x2, la, out, m1, m2, d, ldl, kdim, row0, col0, n,      \
-                                 noise, needs, prog, s))
+#define FRIEDRICH_F64(M)                                                                        \
+  (tma ? launch_f64_as<M, true>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb, kdim, row0, \
+                                col0, n, noise, needs, prog, s)                                 \
+       : launch_f64_as<M, false>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb, kdim,     \
+                                 row0, col0, n, noise, needs, prog, s))
   cudaError_t err;
   switch (method) {
     case GRAM: err = FRIEDRICH_F64(GRAM); break;

@@ -147,3 +147,27 @@ def outofcore_from_arrays(arrays: dict, kernel_spec: dict, prior_spec: dict,
         np.asarray(arrays["x"]), np.asarray(arrays["resid"]), int(arrays["n"]), l_host, eps=eps,
         block=block, method=method, storage=storage, device=device,
     )
+
+
+def large_scale_from_arrays(mesh, arrays: dict, kernel_spec: dict, prior_spec: dict,
+                            eps: Optional[float] = None, block: Optional[int] = None,
+                            method: str = "gram", storage: Optional[str] = None):
+    """This rank's :class:`~.parallel.large_scale.LargeScaleGP` carrying a
+    JAX ``LargeScaleGP``'s state without refactoring: numpy ``x`` and
+    ``resid`` (padded to a capacity that is a multiple of the mesh's size),
+    ``n``, ``noise`` and the gathered factor ``l`` (cap, cap) (float, or
+    bfloat16 as a numpy bfloat16 array or its ``uint16`` bits with
+    ``storage="bf16"``), of which the rank keeps its row block; its kernel
+    and prior specs and its static fields."""
+    from .parallel.large_scale import LargeScaleGP
+
+    x = torch.as_tensor(np.asarray(arrays["x"]), device=mesh.device)
+    l_np = np.asarray(arrays["l"])
+    storage = _storage_of(l_np, storage)
+    r0, r1 = mesh.rows(x.shape[0])
+    l_local = factor_from_numpy(l_np[r0:r1], storage, x.dtype, mesh.device)
+    return LargeScaleGP.from_factor(
+        mesh, kernel_from_spec(kernel_spec), prior_from_spec(prior_spec),
+        float(np.asarray(arrays["noise"])), x, np.asarray(arrays["resid"]), int(arrays["n"]),
+        l_local, eps=eps, block=block, method=method, storage=storage,
+    )

@@ -1,11 +1,15 @@
 """MCMC over GP hyperparameters (counterpart of ``friedrich_tpu/mcmc/``):
 exact-likelihood densities, NUTS and HMC with pooled warmup adaptation,
-convergence diagnostics, and the predictive marginalized over the draws.
-The multi-device samplers and densities of the JAX package
-(``mcmc/sharded.py``, ``mcmc/distributed_logprob.py``) are not ported yet
-(ROADMAP A15)."""
+convergence diagnostics, the predictive marginalized over the draws, and
+the multi-rank samplers and density (``sharded.py``, chains spread over the
+ranks of a mesh; ``distributed_logprob.py``, each evaluation's
+factorization spread over them)."""
 
 from .diagnostics import ess, rhat, summary
+from .distributed_logprob import (
+    make_distributed_hyperparam_logprob,
+    sample_hyperparameters_distributed,
+)
 from .hmc import HMCResult, sample_hmc
 from .logprob import (
     initial_signs,
@@ -15,6 +19,7 @@ from .logprob import (
 )
 from .nuts import NUTSResult, sample_nuts
 from .predictive import predictive_mixture, sample_predictive
+from .sharded import sample_hmc_sharded, sample_nuts_sharded
 
 
 def sample_hyperparameters(
@@ -63,6 +68,10 @@ __all__ = [
     "initial_signs",
     "make_hyperparam_logprob",
     "make_streamed_hyperparam_logprob",
+    "make_distributed_hyperparam_logprob",
+    "sample_hyperparameters_distributed",
+    "sample_nuts_sharded",
+    "sample_hmc_sharded",
     "sample_hyperparameters",
     "predictive_mixture",
     "sample_predictive",

@@ -248,7 +248,7 @@ def library():
             fn.restype = ctypes.c_int
         strip_args = [
             ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ll, ctypes.c_int, ll, ll, ll, ctypes.c_double,
+            ctypes.c_int, ll, ll, ctypes.c_int, ll, ll, ll, ctypes.c_double,
             ctypes.c_int, ctypes.c_int, Program, ptr,
         ]
         for fn in (lib.friedrich_panel_strip_f32, lib.friedrich_panel_strip_bf16,

@@ -37,9 +37,12 @@ float32 and the sums are float32.
 
 The prefix is read in place from the factor (``l_full``, row stride cap; the
 strip's rows may end before the factor's, ``end``: the hybrid
-factorization's leading region) or given explicitly (``prefix``, a contiguous (cap - j0, C) tensor whose first B
-rows are the strip's columns; the out-of-core factorization uploads it in
-chunks). The wrapper takes CUDA tensors only and raises on anything the
+factorization's leading region) or given explicitly (``prefix``, (rows, C) of
+unit column stride whose first B rows are the strip's columns: a contiguous
+chunk the out-of-core factorization uploads, or the owner's view of its row
+block in the distributed factorization). Below the panel's rank the panel's
+rows are not the strip's: they arrive by broadcast as ``panel_rows``, the
+kernel's second operand, and ``row0`` places the strip's first row. The wrapper takes CUDA tensors only and raises on anything the
 kernel does not take. Its plain PyTorch version is
 ``ops/panel_fused.plain_panel_strip``.
 """
@@ -54,6 +57,9 @@ from .build import METHODS, check_launch, library, program
 #: instantiation (:func:`variant`).
 LAUNCHES = 0
 LAUNCHES_BY_VARIANT = {"tf32x3": 0, "one_pass": 0, "bf16": 0, "f64": 0}
+#: Of those, the launches with the panel's rows as their own operand
+#: (``panel_rows``: a rank of the distributed factorization below the panel).
+LAUNCHES_TWO_OPERAND = {"tf32x3": 0, "one_pass": 0, "bf16": 0, "f64": 0}
 
 #: Relative error of one float32 product a*b formed by the 3xTF32 split,
 #: on top of float32 accumulation: a_lo b_lo is dropped and the low parts
@@ -85,24 +91,48 @@ def variant(dtype: torch.dtype, prefix_dtype: torch.dtype, precision=None) -> st
     )
 
 
+def _rows_operand(t: torch.Tensor, what: str) -> int:
+    """The row stride of a prefix operand, which the kernel reads as rows of
+    unit column stride; raises for any other layout."""
+    if t.ndim != 2:
+        raise ValueError(f"panel-strip kernel takes a 2-D {what}, got {tuple(t.shape)}")
+    if t.shape[1] > 0 and (t.stride(1) != 1 or t.stride(0) < t.shape[1]):
+        raise ValueError(f"panel-strip kernel takes a {what} of rows with unit column stride, "
+                         f"got strides {t.stride()}")
+    return t.stride(0) if t.shape[1] > 0 else max(t.shape[1], 1)
+
+
 def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
                 l_full: torch.Tensor | None, n: int, noise, j0: int, block: int,
                 method: str = "gram", precision=None,
-                prefix: torch.Tensor | None = None, end: int | None = None) -> torch.Tensor:
-    """The (end - j0, block) pre-factor strip as one kernel launch.
+                prefix: torch.Tensor | None = None, end: int | None = None,
+                panel_rows: torch.Tensor | None = None, row0: int | None = None) -> torch.Tensor:
+    """The (rows, block) pre-factor strip as one kernel launch.
 
-    ``x_tail`` holds rows ``j0..end`` of the padded inputs, ``xj`` rows
+    ``x_tail`` holds the strip's rows of the padded inputs, ``xj`` rows
     ``j0..j0+block``. The prefix is either rows ``j0..end`` of the first
     ``j0`` columns of ``l_full``, the whole (cap, cap) factor, read in place
     (``end`` defaults to cap), or, with ``l_full=None``, ``prefix`` itself,
-    (cap - j0, C), and ``end`` is None. ``precision`` is the factor
-    precision (:func:`variant`).
+    (rows, C) of unit column stride (a contiguous tensor, or a view of a
+    row-sharded factor). ``precision`` is the factor precision
+    (:func:`variant`).
+
+    One operand (the streamed factorization): the strip's rows start at
+    global row ``j0`` and its columns are the prefix's first ``block`` rows.
+    Two operands (a rank of the distributed factorization below the panel):
+    ``panel_rows`` (block, >= C) holds the panel's rows of the prefix, of
+    the prefix's dtype, and ``row0`` is the global row of the strip's first
+    row; with ``prefix`` only.
     """
     global LAUNCHES
     if (l_full is None) == (prefix is None):
         raise ValueError("panel-strip kernel takes either l_full or prefix")
+    if panel_rows is None and row0 is not None and row0 != j0:
+        raise ValueError(f"a one-operand strip starts at row j0={j0}, got row0={row0}")
+    if panel_rows is not None and prefix is None:
+        raise ValueError("panel-strip kernel takes panel_rows only with an explicit prefix")
     lmat = l_full if prefix is None else prefix
-    tensors = (x_tail, xj, lmat)
+    tensors = (x_tail, xj, lmat) + (() if panel_rows is None else (panel_rows,))
     if not all(isinstance(t, torch.Tensor) for t in tensors):
         raise TypeError("panel-strip kernel takes tensors")
     if not all(t.is_cuda and t.device == x_tail.device for t in tensors):
@@ -114,11 +144,16 @@ def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
     if xj.dtype != dtype:
         raise ValueError(f"panel-strip kernel takes inputs of one dtype, got {dtype} and {xj.dtype}")
     kind = variant(dtype, lmat.dtype, precision)
+    if panel_rows is not None and panel_rows.dtype != lmat.dtype:
+        raise ValueError(f"panel-strip kernel takes panel rows of the prefix's dtype {lmat.dtype}, "
+                         f"got {panel_rows.dtype}")
     if lmat.ndim != 2:
         raise ValueError(f"panel-strip kernel takes a 2-D prefix, got {tuple(lmat.shape)}")
+    first = j0 if row0 is None else int(row0)
     if prefix is None:
-        if l_full.shape[0] != l_full.shape[1]:
-            raise ValueError(f"panel-strip kernel takes a square factor, got {tuple(l_full.shape)}")
+        if l_full.shape[0] != l_full.shape[1] or not l_full.is_contiguous():
+            raise ValueError(f"panel-strip kernel takes a contiguous square factor, got "
+                             f"{tuple(l_full.shape)}")
         cap = l_full.shape[0]
         end = cap if end is None else end
         if not j0 < end <= cap:
@@ -129,9 +164,20 @@ def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
         if end is not None:
             raise ValueError("panel-strip kernel takes an end row only with l_full")
         rest, kdim = prefix.shape
-        ldl, cap = kdim, rest + j0
+        ldl = _rows_operand(prefix, "prefix")
+        cap = max(rest + first, j0 + block)
         rows = prefix
-    if not (0 <= j0 and 1 <= block <= rest):
+    b_rows, ldb = rows, ldl
+    if panel_rows is not None:
+        ldb = _rows_operand(panel_rows, "panel_rows")
+        if panel_rows.shape[0] != block or panel_rows.shape[1] < kdim:
+            raise ValueError(f"panel-strip kernel takes panel rows ({block}, >= {kdim}), got "
+                             f"{tuple(panel_rows.shape)}")
+        b_rows = panel_rows
+        if not (0 <= j0 and 1 <= block and 0 <= first and rest >= 1):
+            raise ValueError(f"panel [{j0}, {j0 + block}) and rows [{first}, {first + rest}) "
+                             f"are not a strip")
+    elif not (0 <= j0 and 1 <= block <= rest):
         raise ValueError(f"panel [{j0}, {j0 + block}) does not fit rows [{j0}, {j0 + rest})")
     if (x_tail.ndim != 2 or xj.ndim != 2 or x_tail.shape[0] != rest
             or xj.shape != (block, x_tail.shape[1])):
@@ -139,27 +185,29 @@ def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
             f"panel-strip kernel takes x_tail ({rest}, d) and xj ({block}, d), "
             f"got {tuple(x_tail.shape)} and {tuple(xj.shape)}"
         )
-    if not all(t.is_contiguous() for t in tensors):
+    if not (x_tail.is_contiguous() and xj.is_contiguous()):
         raise ValueError("panel-strip kernel takes contiguous inputs")
     if method not in METHODS:
         raise ValueError(f"unknown distance method {method!r}")
-    if max(cap, ldl, x_tail.shape[1]) >= 2**31 or rest > 65535 * 128:
+    if max(cap, ldl, ldb, x_tail.shape[1]) >= 2**31 or rest > 65535 * 128:
         raise ValueError(f"panel-strip kernel takes capacities up to {65535 * 128}")
     out = torch.empty((rest, block), dtype=dtype, device=x_tail.device)
     prog, needs = program(kernel)
     fn = getattr(library(), _ENTRY[kind])
     stream = torch.cuda.current_stream(x_tail.device).cuda_stream
-    pointers = [x_tail.data_ptr(), xj.data_ptr(), rows.data_ptr(), rows.data_ptr()]
+    pointers = [x_tail.data_ptr(), xj.data_ptr(), rows.data_ptr(), b_rows.data_ptr()]
     if kind == "one_pass":
-        # the panel's own rows rounded to bfloat16, rows 16-byte aligned
+        # the panel's rows rounded to bfloat16, rows 16-byte aligned
         scratch = torch.empty((block, -(-kdim // 8) * 8) if kdim else (0,), dtype=torch.bfloat16,
                               device=x_tail.device)
         pointers.append(scratch.data_ptr() if kdim else None)
     err = fn(
-        *pointers, out.data_ptr(), rest, block, x_tail.shape[1], ldl, kdim, j0, j0, int(n),
+        *pointers, out.data_ptr(), rest, block, x_tail.shape[1], ldl, ldb, kdim, first, j0, int(n),
         float(noise), METHODS[method], needs, prog, stream,
     )
     check_launch(err, "panel-strip kernel")
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[kind] += 1
+    if panel_rows is not None:
+        LAUNCHES_TWO_OPERAND[kind] += 1
     return out

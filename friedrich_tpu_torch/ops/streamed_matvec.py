@@ -40,7 +40,8 @@ def rademacher_probes(cap: int, n: int, num_probes: int, seed: int, dtype,
 
 def streamed_grad_matvec(kernel, x_pad: torch.Tensor, n: int, v: torch.Tensor,
                          block: Optional[int] = None,
-                         method: str = "gram") -> torch.Tensor:
+                         method: str = "gram",
+                         rows: Optional[tuple[int, int]] = None) -> torch.Tensor:
     """``(p, cap, m) = stack_p [dK_p @ V]`` with dK never materialized; a
     vector ``v`` gives ``(p, cap)``.
 
@@ -48,27 +49,31 @@ def streamed_grad_matvec(kernel, x_pad: torch.Tensor, n: int, v: torch.Tensor,
     ``ops/covariance.gradient_covariances_padded``), so products over the
     full buffer equal the live ones. The panel width is ``block`` snapped
     to a divisor of the capacity; by default the larger of
-    :data:`DEFAULT_MATVEC_BLOCK` and :data:`MATVEC_STRIP_ENTRIES` / cap.
+    :data:`DEFAULT_MATVEC_BLOCK` and :data:`MATVEC_STRIP_ENTRIES` / the rows.
+    ``rows=(r0, r1)``: only those rows of the products, ``(p, r1 - r0,
+    m)`` (a rank's rows in ``parallel/``).
     """
     cap = x_pad.shape[0]
+    r0, r1 = (0, cap) if rows is None else rows
     if block is None:
-        block = max(DEFAULT_MATVEC_BLOCK, MATVEC_STRIP_ENTRIES // cap)
+        block = max(DEFAULT_MATVEC_BLOCK, MATVEC_STRIP_ENTRIES // max(r1 - r0, 1))
     b = pick_block(cap, block)
     v2 = v if v.ndim == 2 else v[:, None]
-    rows = torch.arange(cap, device=x_pad.device)[:, None]
-    acc = torch.zeros((kernel.nb_params, cap, v2.shape[1]), dtype=x_pad.dtype,
+    x_rows = x_pad[r0:r1]
+    row_idx = torch.arange(r0, r1, device=x_pad.device)[:, None]
+    acc = torch.zeros((kernel.nb_params, r1 - r0, v2.shape[1]), dtype=x_pad.dtype,
                       device=x_pad.device)
     for j0 in range(0, cap, b):
         xj = x_pad[j0:j0 + b]
-        feats = pairwise_features(x_pad, xj, kernel.needs, method=method)
+        feats = pairwise_features(x_rows, xj, kernel.needs, method=method)
         grads = kernel.pointwise_grads(feats)  # p x (cap, b)
         del feats
         # analytic diagonal (distance exactly zero), as in
         # ops/covariance.gradient_covariances_padded
         dgrads = kernel.pointwise_grads(diag_features(xj, kernel.needs))
         cols = torch.arange(j0, j0 + b, device=x_pad.device)[None, :]
-        diag = rows == cols
-        live = (rows < n) & (cols < n)
+        diag = row_idx == cols
+        live = (row_idx < n) & (cols < n)
         vj = v2[j0:j0 + b]
         for p, (g, dg) in enumerate(zip(grads, dgrads)):
             g = torch.where(live, torch.where(diag, dg[None, :], g), 0.0)

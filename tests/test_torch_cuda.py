@@ -511,6 +511,42 @@ def test_streamed_factor_into_a_reused_buffer_on_the_card(card, dtype):
     assert torch.equal(got, fresh)
 
 
+# The panel's rows as a separate operand (a rank of the distributed
+# factorization below the panel): every instantiation, the strip's rows from
+# global row 1,000, the prefix read in place at row stride 1,001 (cp.async /
+# plain loads) or 1,000 (TMA), panel rows of odd and aligned widths, kdim 0,
+# B < 8 and fewer rows than B; NaN right of the prefix in both operands.
+@pytest.mark.parametrize("kind", ("tf32x3", "one_pass", "bf16", "f64"))
+@pytest.mark.parametrize("rows,block,j0,ldl,ldb", [(333, 128, 256, 1001, 264), (500, 96, 0, 1000, 8),
+                                                   (257, 5, 77, 1000, 81), (64, 200, 300, 1000, 301)])
+def test_panel_strip_two_operand_matches_plain_version(card, kind, rows, block, j0, ldl, ldb):
+    rng = np.random.default_rng(93)
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    pdtype = torch.bfloat16 if kind == "bf16" else dtype
+    precision = "bf16" if kind == "one_pass" else None
+    a = np.full((rows, ldl), np.nan)
+    a[:, :j0] = rng.normal(size=(rows, j0)) * 0.1
+    q = np.full((block, ldb), np.nan)
+    q[:, :j0] = rng.normal(size=(block, j0)) * 0.1
+    prefix = torch.as_tensor(a, dtype=pdtype, device=card)[:, :j0]
+    panel_rows = torch.as_tensor(q, dtype=pdtype, device=card)[:, :max(j0, 1)]
+    x = torch.as_tensor(rng.normal(size=(rows, 5)), dtype=dtype, device=card)
+    xj = torch.as_tensor(rng.normal(size=(block, 5)), dtype=dtype, device=card)
+    kern = KERNELS["Composite"].to(dtype, card)
+    args = (kern, x, xj, None, 1200, 0.3, j0, block)
+    kw = dict(precision=precision, prefix=prefix, panel_rows=panel_rows, row0=1000)
+    before = pc.LAUNCHES_TWO_OPERAND[kind]
+    got = panel_fused.panel_strip(*args, **kw)
+    assert pc.LAUNCHES_TWO_OPERAND[kind] == before + 1
+    want = panel_fused.plain_panel_strip(*args, **kw)
+    p = panel_fused.downdate_operand(prefix, dtype, precision)
+    r = panel_fused.downdate_operand(panel_rows[:, :j0], dtype, precision)
+    unit, split = (2.0**-53, 0.0) if kind == "f64" else (2.0**-24, pc.SPLIT_ERROR if kind == "tf32x3" else 0.0)
+    atol = 1e-12 if kind == "f64" else 2e-5
+    bound = (j0 * unit + split) * (p.abs() @ r.abs().mT) + atol + (0 if kind == "f64" else 2e-5) * want.abs()
+    assert bool(((got - want).abs() <= bound).all())
+
+
 def test_panel_strip_wrapper_refuses_what_the_kernel_does_not_take(card):
     x = torch.zeros((8, 3), device=card)
     l_full = torch.zeros((8, 8), device=card)
@@ -521,6 +557,18 @@ def test_panel_strip_wrapper_refuses_what_the_kernel_does_not_take(card):
         pc.panel_strip(kern, x, x[:4], l_full.T, 8, 0.1, 0, 4)
     with pytest.raises(ValueError, match="fit"):
         pc.panel_strip(kern, x[6:], x[6:], l_full, 8, 0.1, 6, 4)
+    # a second operand: only beside an explicit prefix, of the prefix's dtype,
+    # B rows at least kdim wide; a one-operand strip starts at j0
+    with pytest.raises(ValueError, match="explicit prefix"):
+        pc.panel_strip(kern, x[4:], x[:4], l_full, 8, 0.1, 4, 4, panel_rows=l_full[:4, :4], row0=4)
+    with pytest.raises(ValueError, match="dtype"):
+        pc.panel_strip(kern, x, x[:4], None, 8, 0.1, 4, 4, prefix=l_full[:, :4],
+                       panel_rows=l_full[:4, :4].double(), row0=0)
+    with pytest.raises(ValueError, match="panel rows"):
+        pc.panel_strip(kern, x, x[:4], None, 8, 0.1, 4, 4, prefix=l_full[:, :4],
+                       panel_rows=l_full[:4, :2].contiguous(), row0=0)
+    with pytest.raises(ValueError, match="row0"):
+        pc.panel_strip(kern, x[4:], x[4:], None, 8, 0.1, 4, 4, prefix=l_full[4:, :4], row0=2)
 
 
 @pytest.fixture

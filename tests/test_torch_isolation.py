@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``friedrich_tpu_torch`` nor
-``chip_smoke.py`` imports JAX, its libraries, or the JAX package."""
+"""The PyTorch port stands alone: no module of ``friedrich_tpu_torch``, nor
+``chip_smoke.py``, nor the multi-rank tests' rank helper (which spawned
+ranks import) imports JAX, its libraries, or the JAX package."""
 
 import ast
 import pathlib
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "friedrich_tpu", "ml_dtypes")
-SOURCES = sorted((ROOT / "friedrich_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "friedrich_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_ranks.py"]
 
 
 def _imported_modules(path: pathlib.Path):
@@ -48,6 +50,10 @@ def test_package_imports_with_jax_blocked():
         "import friedrich_tpu_torch.utils.profiling, friedrich_tpu_torch.utils.debugging\n"
         "from friedrich_tpu_torch import OutOfCoreGP\n"
         "from friedrich_tpu_torch.mcmc import sample_hyperparameters\n"
+        "import friedrich_tpu_torch.parallel, friedrich_tpu_torch.entry\n"
+        "import friedrich_tpu_torch.mcmc.sharded, friedrich_tpu_torch.mcmc.distributed_logprob\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_parallel_ranks\n"
         "print('ok')\n"
     )
     out = subprocess.run(
