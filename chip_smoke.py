@@ -169,6 +169,22 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    final factor and timed at the middle one beside its bound, its plain
    version and one float64 ``torch.addmm``; B1 at the flow's float64
    shapes; a ``torch.profiler`` breakdown of one float64 build.
+11. the multi-rank layer: (11a) B2 with the panel's rows as a separate
+   operand against its plain version; (11b) ``LargeScaleGP`` at n=100,000
+   on NCCL's world of one (build, predict, ``fit_scaled(max_iter=2)``,
+   append); (11c) two gloo ranks on the one card at n=50,000 against a
+   world of one, and chain-sharded NUTS; (11d) the distributed density's
+   sampler (``--phase11`` runs phase 1 and phase 11 alone).
+12. serving across ranks and the example twins: (12a) ``AcceleratedGPServer``
+   over 11b's ``LargeScaleGP`` on NCCL's world of one, 9c's clients and
+   gates; (12b) 11c's two gloo ranks at n=50,000, each on its row block of
+   a world of one's factor (shared on the card), serving from rank 0 while
+   rank 1 runs ``serving.follow``, each reply within 1e-5 of the world of
+   one's answer and equal to rank 0's in-process answer;
+   (12c) each twin of ``examples/`` (``friedrich_tpu_torch/examples/``)
+   at its script's defaults (``outofcore_gp`` at n=50,000,
+   ``large_scale_fit`` at n=20,000) with its gates and the kernels'
+   launches (``--phase12`` runs phase 1 and phase 12 alone).
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 JSON line describing each kernel, and ``{"ok": true, "device": ...}``.
@@ -3235,8 +3251,8 @@ def phase_tiled_b1(fitted, n: int, by_shape: dict, served_launches: int) -> tupl
     return row, merged
 
 
-def phase_serving(gp) -> dict:
-    """9c: ``AcceleratedGPServer`` over 9a's model: 4 ``GPClient`` threads
+def phase_serving(gp, label: str = "9c", what: str = "9a's model") -> dict:
+    """9c (12a: ``label``): ``AcceleratedGPServer`` over ``what``: 4 ``GPClient`` threads
     send 8 requests each of 1-1,024 rows (seed 9), alternately mean and
     variance and mean only; each reply within SERVE_ATOL of the model's
     in-process prediction of its rows at the server's solve width
@@ -3249,10 +3265,10 @@ def phase_serving(gp) -> dict:
 
     from friedrich_tpu_torch import ConfigError, serving
 
-    log(f"== phase 9c: AcceleratedGPServer over 9a's model, {SERVE_CLIENTS} clients x "
+    log(f"== phase {label}: AcceleratedGPServer over {what}, {SERVE_CLIENTS} clients x "
         f"{SERVE_REQUESTS} requests of 1-{SERVE_MAX_ROWS} rows")
     rng = np.random.default_rng(9)
-    d = gp.state.input_dim
+    d = getattr(gp, "state", gp).x.shape[1]
     plan = [[(rng.normal(size=(int(rng.integers(1, SERVE_MAX_ROWS + 1)), d)), k % 2 == 0)
              for k in range(SERVE_REQUESTS)] for _ in range(SERVE_CLIENTS)]
     replies = [[None] * SERVE_REQUESTS for _ in range(SERVE_CLIENTS)]
@@ -3264,10 +3280,10 @@ def phase_serving(gp) -> dict:
         with serving.GPClient(port=srv.port, timeout=600.0) as c:
             try:
                 c.predict(rng.normal(size=(3, d + 1)))
-                fail("phase 9c: a request of the wrong dimension was answered")
+                fail(f"phase {label}: a request of the wrong dimension was answered")
             except ConfigError as e:
                 if "status 1" not in str(e):
-                    fail(f"phase 9c: a dimension mismatch was answered with {e}")
+                    fail(f"phase {label}: a dimension mismatch was answered with {e}")
             c.predict(plan[0][0][0][:2])  # the same connection, still usable
         barrier = threading.Barrier(SERVE_CLIENTS)
 
@@ -3292,13 +3308,14 @@ def phase_serving(gp) -> dict:
     b1 = read_launches()[0]
     # ---- end of the main path
     if errors:
-        fail(f"phase 9c: requests failed: {errors}")
+        fail(f"phase {label}: requests failed: {errors}")
     worst, one_solve = 0.0, 0.0
     for i in range(SERVE_CLIENTS):
         for k, (xq, both) in enumerate(plan[i]):
             mean, var = replies[i][k]
             for which, kw in (("block", {"block": srv.block}), ("one_solve", {})):
-                want_mean, want_var = gp.predict_mean_variance(xq, **kw)
+                want_mean, want_var = (np.asarray(torch.as_tensor(t).cpu())
+                                       for t in gp.predict_mean_variance(xq, **kw))
                 diff = float(np.abs(mean - want_mean).max())
                 if both:
                     diff = max(diff, float(np.abs(var - want_var).max()))
@@ -3314,13 +3331,13 @@ def phase_serving(gp) -> dict:
            "requests_per_dispatch": per_dispatch, "covariance_tile_launches": b1,
            "max_abs_diff_vs_in_process": worst, "tolerance": SERVE_ATOL,
            "max_abs_diff_vs_one_solve": one_solve}
-    log(json.dumps({"phase_9c": out}))
+    log(json.dumps({f"phase_{label}": out}))
     if len(latencies) != SERVE_CLIENTS * SERVE_REQUESTS:
-        fail(f"phase 9c: {len(latencies)} replies, expected {SERVE_CLIENTS * SERVE_REQUESTS}")
+        fail(f"phase {label}: {len(latencies)} replies, expected {SERVE_CLIENTS * SERVE_REQUESTS}")
     if b1 <= 0:
-        fail("phase 9c: serving did not launch the covariance kernel")
+        fail(f"phase {label}: serving did not launch the covariance kernel")
     if not worst <= SERVE_ATOL:
-        fail(f"phase 9c: replies differ from the in-process predictions by {worst} (limit {SERVE_ATOL})")
+        fail(f"phase {label}: replies differ from the in-process predictions by {worst} (limit {SERVE_ATOL})")
     torch.cuda.empty_cache()
     return out
 
@@ -3847,14 +3864,8 @@ def phase11_reference(n: int) -> tuple:
     them in the full run."""
     import torch
 
-    import friedrich_tpu_torch as ft
-
     x, y, xq = bench_data(n)[:3]
-    log(f"== phase 11 alone: the builder's default flow at n={n} for 6a's fitted hyperparameters")
-    gp = ft.GaussianProcessBuilder(x, y, device="cuda").set_capacity(n + K_ADD).fit_kernel().fit_prior().train()
-    fitted = (gp.prior, gp.kernel.to(torch.float32, "cpu"), gp.noise)
-    del gp
-    torch.cuda.empty_cache()
+    fitted = fitted_6a_alone(n)
     gp = phase9_build("streamed", fitted, x, y, n + K_ADD)
     mean, var = gp.predict_mean_variance(xq)
     w_mean, history = float64_mean_witness(gp.state, y, n, xq)
@@ -4205,6 +4216,355 @@ def phase_eleven(fitted, n: int, ref, witness, entry: dict, streamed_entry: dict
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serving a LargeScaleGP across ranks, and the example twins
+# ---------------------------------------------------------------------------
+
+#: 12b: the two ranks' model (11c's size), their client threads and
+#: requests each (1-512 rows, seed 12).
+RANKS_12B, N_12B = 2, 50_000
+CLIENTS_12B, REQUESTS_12B, MAX_ROWS_12B = 2, 3, 512
+#: The twins' sizes on the card: the JAX scripts' defaults, but for these.
+TWIN_SIZES = {"outofcore_gp": 50_000, "large_scale_fit": 20_000}
+#: 12c: a twin's predictions within this of float32's (PERF.md section 2's
+#: bf16 gate) and the daemon's float64 within 9d's gate of the card's.
+TWIN_BF16_ATOL = 0.05
+
+
+def fitted_6a_alone(n: int):
+    """6a's fitted hyperparameters from the builder's default flow at ``n``
+    points (``--phase11``, ``--phase12``)."""
+    import torch
+
+    import friedrich_tpu_torch as ft
+
+    x, y = bench_data(n)[:2]
+    log(f"== the builder's default flow at n={n} for 6a's fitted hyperparameters")
+    gp = (ft.GaussianProcessBuilder(x, y, device="cuda")
+          .set_noise(1.0).set_dtype("float32").set_capacity(n + K_ADD).set_backend("streamed")
+          .set_fit_parameters(100, 0.05).fit_kernel().fit_prior().train())  # phase 6a's chain
+    fitted = (gp.prior, gp.kernel.to(torch.float32, "cpu"), gp.noise)
+    del gp
+    torch.cuda.empty_cache()
+    return fitted
+
+
+def phase_serve_large_scale(fitted, n: int) -> dict:
+    """12a: ``AcceleratedGPServer`` over a ``LargeScaleGP`` at ``n`` points
+    (capacity n + 512, 6a's fitted hyperparameters, 11b's model) on NCCL's
+    world of one: 9c's 4 clients x 8 requests, each reply within
+    SERVE_ATOL of ``predict_mean_variance(rows, block=256)``, p50 and p99,
+    B1's launches; a world of one sends no collective."""
+    import torch
+
+    from friedrich_tpu_torch.parallel import LargeScaleGP, make_matrix_mesh, multihost
+    from friedrich_tpu_torch.parallel.mesh import COLLECTIVES
+
+    world_of_one("nccl")
+    prior, kernel, noise = fitted
+    x, y = bench_data(n)[:2]
+    t0 = sync()
+    gp = LargeScaleGP(make_matrix_mesh(1), kernel, prior, float(noise), x, y, capacity=n + K_ADD)
+    build_s = sync() - t0
+    COLLECTIVES.clear()
+    out = phase_serving(gp, "12a", f"a LargeScaleGP of {n} points on NCCL's world of one")
+    out["build_s"] = build_s
+    out["collectives"] = {f"{k}": v for k, v in COLLECTIVES.items()}
+    del gp
+    torch.cuda.empty_cache()
+    multihost.shutdown()
+    if out["collectives"]:
+        fail(f"phase 12a: a world of one sent collectives {out['collectives']}")
+    return out
+
+
+def _rank_12b(rank: int, url: str, out_dir: str, model: dict, l_full, block: int, plan) -> None:
+    """One rank of 12b on the one card through gloo: a LargeScaleGP on its
+    row block of the world of one's factor ``l_full`` (shared from the
+    parent's memory on the card), every request answered in process at the
+    server's width; then rank 0 serves the plan to its client threads
+    while rank 1 follows. Writes its results to ``out_dir``; any exception
+    fails the rank."""
+    import threading
+    import traceback
+
+    try:
+        import torch
+
+        from friedrich_tpu_torch import serving
+        from friedrich_tpu_torch.interop import kernel_from_spec, prior_from_spec
+        from friedrich_tpu_torch.parallel import LargeScaleGP, make_matrix_mesh, multihost
+        from friedrich_tpu_torch.parallel.mesh import COLLECTIVES
+
+        multihost.initialize(url, RANKS_12B, rank, backend="gloo", device="cuda:0")
+        mesh = make_matrix_mesh(RANKS_12B)
+        r0, r1 = mesh.rows(l_full.shape[0])
+        gp = LargeScaleGP.from_factor(mesh, kernel_from_spec(model["kernel"]), prior_from_spec(model["prior"]),
+                                      model["noise"], model["x"], model["resid"], model["n"],
+                                      l_full[r0:r1], block=block)
+        flat = [xq for reqs in plan for xq in reqs]
+        in_process = [[t.cpu().numpy() for t in gp.predict_mean_variance(xq, block=SERVE_BLOCK)]
+                      for xq in flat]
+        reset_launches()
+        COLLECTIVES.clear()
+        info = {"rank": rank}
+        arrays = {}
+        t0 = sync()
+        if rank == 0:
+            replies = [[None] * len(reqs) for reqs in plan]
+            latencies, errors = [], []
+            with serving.AcceleratedGPServer(gp, block=SERVE_BLOCK) as srv:
+                def client(i):
+                    try:
+                        with serving.GPClient(port=srv.port, timeout=600.0) as c:
+                            for k, xq in enumerate(plan[i]):
+                                t1 = time.perf_counter()
+                                replies[i][k] = c.predict_mean_variance(xq)
+                                latencies.append(time.perf_counter() - t1)
+                    except Exception as e:  # noqa: BLE001 — reported below
+                        errors.append(repr(e))
+
+                threads = [threading.Thread(target=client, args=(i,)) for i in range(len(plan))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+            info.update({"errors": errors, "latencies_s": sorted(latencies),
+                         "sweeps": sum(srv.dispatches.values()),
+                         "broken": repr(srv.broken) if srv.broken is not None else None})
+            served = [r for reqs in replies for r in reqs]
+            for k, r in enumerate(served):
+                if r is not None:
+                    arrays[f"mean_{k}"], arrays[f"var_{k}"] = r
+        else:
+            info["sweeps"] = serving.follow(gp)
+        info["serve_s"] = sync() - t0
+        b1, _, b2 = read_launches()
+        info.update({"covariance_tile_launches": b1, "panel_strip_launches": b2,
+                     "collectives": {f"{kind} {shape} {dtype}": v
+                                     for (kind, shape, dtype), v in COLLECTIVES.items()}})
+        for k, (mean, var) in enumerate(in_process):
+            arrays[f"in_process_mean_{k}"], arrays[f"in_process_var_{k}"] = mean, var
+        np.savez(os.path.join(out_dir, f"{rank}.npz"), **arrays)
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump(info, f)
+        multihost.shutdown()
+    except Exception:  # written for the parent, then the rank fails
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def phase_serve_two_ranks(fitted) -> dict:
+    """12b: 11c's two gloo ranks on the one card at n = 50,000 (capacity
+    50,512), rank 0 serving 2 client threads of 3 requests each and rank 1
+    following, each on its row block of a world of one's factor (11c holds
+    two factorizations at different row splits to each other); each reply
+    within SERVE_ATOL of that world of one's ``predict_mean_variance(rows,
+    block=256)`` and equal to rank 0's in-process answer; both ranks take
+    part in the same sweeps."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from friedrich_tpu_torch.interop import kernel_spec, prior_spec
+    from friedrich_tpu_torch.ops.partition import pick_block
+    from friedrich_tpu_torch.parallel import LargeScaleGP, make_matrix_mesh, multihost
+
+    n, cap = N_12B, N_12B + K_ADD
+    b = pick_block(cap // RANKS_12B, 2048)
+    log(f"== phase 12b: {RANKS_12B} gloo ranks on the one card serve a LargeScaleGP of {n} points "
+        f"(panel {b}), {CLIENTS_12B} clients x {REQUESTS_12B} requests, against a world of one")
+    prior, kernel, noise = fitted
+    rng = np.random.default_rng(12)
+    plan = [[rng.normal(size=(int(rng.integers(1, MAX_ROWS_12B + 1)), D)) for _ in range(REQUESTS_12B)]
+            for _ in range(CLIENTS_12B)]
+    flat = [xq for reqs in plan for xq in reqs]
+    x, y = bench_data(n)[:2]
+    world_of_one("nccl")
+    gp = LargeScaleGP(make_matrix_mesh(1), kernel, prior, float(noise), x, y, capacity=cap, block=b)
+    one = [[t.cpu().numpy() for t in gp.predict_mean_variance(xq, block=SERVE_BLOCK)] for xq in flat]
+    model = {"kernel": kernel_spec(gp.kernel), "prior": prior_spec(gp.prior), "noise": float(gp.noise),
+             "x": gp.x.cpu().numpy(), "resid": gp.resid.cpu().numpy(), "n": gp.n}
+    l_full = gp.l_local  # kept alive until the ranks end: they read it in place
+    del gp
+    multihost.shutdown()
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_12b_")
+    url = f"tcp://127.0.0.1:{multihost.free_port()}"
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_rank_12b, args=(r, url, out_dir, model, l_full, b, plan))
+             for r in range(RANKS_12B)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    del l_full
+    torch.cuda.empty_cache()
+    errors = [open(os.path.join(out_dir, f"{r}.err")).read() for r in range(RANKS_12B)
+              if os.path.exists(os.path.join(out_dir, f"{r}.err"))]
+    if errors or any(p.exitcode != 0 for p in procs):
+        fail(f"phase 12b: a rank failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    ranks = []
+    for r in range(RANKS_12B):
+        with open(os.path.join(out_dir, f"{r}.json")) as f:
+            info = json.load(f)
+        info["arrays"] = dict(np.load(os.path.join(out_dir, f"{r}.npz")))
+        ranks.append(info)
+    lead = ranks[0]
+    vs_one, vs_in_process, in_process_vs_one = 0.0, 0.0, 0.0
+    for k, (want_mean, want_var) in enumerate(one):
+        a = lead["arrays"]
+        if f"mean_{k}" not in a:
+            fail(f"phase 12b: request {k} was not answered ({lead['errors']})")
+        mean, var = a[f"mean_{k}"], a[f"var_{k}"]
+        vs_one = max(vs_one, float(np.abs(mean - want_mean).max()), float(np.abs(var - want_var).max()))
+        vs_in_process = max(vs_in_process, float(np.abs(mean - a[f"in_process_mean_{k}"]).max()),
+                            float(np.abs(var - a[f"in_process_var_{k}"]).max()))
+        in_process_vs_one = max(in_process_vs_one,
+                                float(np.abs(a[f"in_process_mean_{k}"] - want_mean).max()))
+    lat = lead["latencies_s"]
+    steps = {"ranks": RANKS_12B, "capacity": cap, "panel": b, "wall_s": wall,
+             "requests": len(flat), "rows": sum(q.shape[0] for q in flat),
+             "latency_p50_s": lat[len(lat) // 2] if lat else None, "latency_max_s": lat[-1] if lat else None,
+             "max_abs_diff_vs_world_of_one": vs_one, "max_abs_diff_vs_rank0_in_process": vs_in_process,
+             "in_process_mean_max_abs_diff_vs_world_of_one": in_process_vs_one, "tolerance": SERVE_ATOL,
+             "per_rank": [{k: v for k, v in info.items() if k != "arrays"} for info in ranks]}
+    log(json.dumps({"phase_12b": steps}))
+    if lead["errors"] or lead["broken"]:
+        fail(f"phase 12b: requests failed: {lead['errors']} (server broken: {lead['broken']})")
+    if any(info["sweeps"] != lead["sweeps"] for info in ranks):
+        fail(f"phase 12b: the ranks took part in {[info['sweeps'] for info in ranks]} sweeps")
+    if any(info["covariance_tile_launches"] <= 0 for info in ranks):
+        fail("phase 12b: a rank's sweeps never launched the covariance kernel")
+    if not vs_in_process == 0.0:
+        fail(f"phase 12b: replies differ from rank 0's in-process answers by {vs_in_process}")
+    if not vs_one <= SERVE_ATOL:
+        fail(f"phase 12b: replies differ from the world of one's by {vs_one} (limit {SERVE_ATOL})")
+    return {"steps": steps, "covariance_tile_launches": sum(i["covariance_tile_launches"] for i in ranks)}
+
+
+def _finite(*arrays) -> bool:
+    return all(np.isfinite(np.asarray(a, dtype=np.float64)).all() for a in arrays)
+
+
+def phase_twins() -> dict:
+    """12c: each example twin's ``main`` on the card at its JAX script's
+    defaults (``TWIN_SIZES`` larger), with the kernels' launches of each;
+    gates: finite numbers, variances >= -1e-4, fitted LMLs above the
+    start's, the sampler's R-hat below 1.1, the daemon within 9d's gate of
+    the card, bf16 predictions within 0.05 of float32's, and each precision
+    mode on its own B2 instantiation."""
+    import torch
+
+    from friedrich_tpu_torch import config, mcmc
+    from friedrich_tpu_torch.examples import (
+        bayesian_hyperparameters,
+        bayesian_optimization,
+        distributed_gp,
+        large_scale_fit,
+        outofcore_gp,
+        precision_modes,
+        serving_deployment,
+    )
+
+    runs = [
+        ("bayesian_optimization", lambda: bayesian_optimization.main(device="cuda")),
+        ("serving_deployment", lambda: serving_deployment.main(device="cuda")),
+        ("distributed_gp", lambda: distributed_gp.main(device="cuda")),
+        ("bayesian_hyperparameters", lambda: bayesian_hyperparameters.main(device="cuda")),
+        ("large_scale_fit", lambda: large_scale_fit.main(n=TWIN_SIZES["large_scale_fit"], device="cuda")),
+        ("outofcore_gp", lambda: outofcore_gp.main(n=TWIN_SIZES["outofcore_gp"], device="cuda")),
+        ("precision_modes", lambda: precision_modes.main(device="cuda")),
+    ]
+    # the twins run at their scripts' ambient default dtype, float32: the
+    # demo of phase 3 made float64 this process's default
+    x64, config._x64 = config._x64, False
+    rows, results = {}, {}
+    try:
+        for name, run in runs:
+            log(f"== phase 12c: examples/{name}.py's twin on the card")
+            reset_launches()
+            t0 = sync()
+            results[name] = run()
+            seconds = sync() - t0
+            b1, _, b2 = read_launches()
+            rows[name] = {"seconds": seconds, "covariance_tile_launches": b1, "panel_strip_launches": b2,
+                          "panel_strip_launches_by_variant": variant_launches()}
+            sys.stdout.flush()
+            log(json.dumps({"phase_12c": {name: rows[name]}}))
+            torch.cuda.empty_cache()
+    finally:
+        config._x64 = x64
+
+    def gate(ok: bool, name: str, what: str) -> None:
+        if not ok:
+            fail(f"phase 12c: {name}: {what}")
+
+    best = results["bayesian_optimization"]
+    gate(np.isfinite(best) and best > 0.9, "bayesian_optimization", f"best found {best} (at most 0.9)")
+    mean, mean2 = results["serving_deployment"]
+    gate(_finite(mean, mean2), "serving_deployment", "served answers not finite")
+    gate(float(np.abs(mean - mean2).max()) <= DAEMON_ATOL, "serving_deployment",
+         f"the daemon and the card differ by {float(np.abs(mean - mean2).max())}")
+    gp = results["distributed_gp"]
+    mean_d, var_d = gp.predict_mean_variance(bench_data(64)[2][:256, :4])
+    gate(np.isfinite(gp.log_marginal_likelihood()) and _finite(mean_d.cpu(), var_d.cpu()),
+         "distributed_gp", "LML or predictions not finite")
+    gate(float(var_d.min()) >= -1e-4, "distributed_gp", f"variance {float(var_d.min())}")
+    del gp
+    res = results["bayesian_hyperparameters"]
+    r_hat = mcmc.rhat(res.samples.cpu())
+    gate(_finite(res.samples.cpu()) and bool((r_hat < 1.1).all()), "bayesian_hyperparameters",
+         f"R-hat {r_hat.tolist()}")
+    fit = results["large_scale_fit"]
+    gate(_finite(fit["lml_initial"], fit["predictions"], *(fit[k]["lml"] for k in ("subsampled", "hutchinson", "auto"))),
+         "large_scale_fit", "not finite")
+    for key in ("subsampled", "hutchinson"):
+        gate(fit[key]["lml"] > fit["lml_initial"], "large_scale_fit",
+             f"the {key} fit's LML {fit[key]['lml']} is not above the start's {fit['lml_initial']}")
+    ooc = results["outofcore_gp"]
+    gate(_finite(ooc["mean"], ooc["var"], ooc["lml"]), "outofcore_gp", "not finite")
+    gate(float(ooc["var"].min()) >= -1e-4, "outofcore_gp", f"variance {float(ooc['var'].min())}")
+    gate(ooc["n"] == TWIN_SIZES["outofcore_gp"] + 64, "outofcore_gp", f"n after the append {ooc['n']}")
+    gate(rows["outofcore_gp"]["panel_strip_launches_by_variant"]["tf32x3"] > 0, "outofcore_gp",
+         "the explicit-prefix entry never launched")
+    modes = results["precision_modes"]
+    gate(_finite(*modes.values()), "precision_modes", "not finite")
+    for label in ("bf16", "default+bf16store"):
+        spread = float(np.abs(modes[label] - modes["f32"]).max())
+        gate(spread <= TWIN_BF16_ATOL, "precision_modes", f"{label} is {spread} from f32")
+    by_variant = rows["precision_modes"]["panel_strip_launches_by_variant"]
+    for kind in ("one_pass", "tf32x3", "bf16"):
+        gate(by_variant[kind] > 0, "precision_modes", f"the {kind} instantiation never launched")
+    for name, row in rows.items():
+        gate(row["covariance_tile_launches"] > 0, name, "the covariance kernel never launched")
+    return rows
+
+
+def phase_twelve(fitted, n: int) -> dict:
+    """Phase 12 in order; returns the launches it adds to the kernel line."""
+    t12 = time.perf_counter()
+    served = phase_serve_large_scale(fitted, n)
+    two = phase_serve_two_ranks(fitted)
+    twins = phase_twins()
+    log(f"phase 12 took {time.perf_counter() - t12} s")
+    by_variant = {kind: sum(row["panel_strip_launches_by_variant"][kind] for row in twins.values())
+                  for kind in ("tf32x3", "one_pass", "bf16", "f64")}
+    return {"covariance_tile": {"launches_12a_serving": served["covariance_tile_launches"],
+                                "launches_12b_two_ranks": two["covariance_tile_launches"],
+                                "launches_12c_twins": sum(r["covariance_tile_launches"] for r in twins.values())},
+            "panel_strip_12c_twins": by_variant}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--n", type=int, default=50_000,
@@ -4220,6 +4580,9 @@ def main() -> int:
     parser.add_argument("--phase11", action="store_true",
                         help="only phase 1 and phase 11 (the multi-rank layer; its reference "
                              "model fitted here) and exit")
+    parser.add_argument("--phase12", action="store_true",
+                        help="only phase 1 and phase 12 (serving a LargeScaleGP across ranks, the "
+                             "example twins; 6a's hyperparameters fitted here) and exit")
     args = parser.parse_args()
 
     import torch
@@ -4240,6 +4603,10 @@ def main() -> int:
         row = phase_eleven(fitted, args.streamed_n, ref, witness, b1_counts, b2_counts)
         log(json.dumps({"phase_11_launches": {"covariance_tile": b1_counts, "panel_strip": b2_counts},
                         "two_operand": row}))
+        return 0
+    if args.phase12:
+        log(json.dumps({"phase_12_launches": phase_twelve(fitted_6a_alone(args.streamed_n),
+                                                          args.streamed_n)}))
         return 0
     phase_kernel_vs_plain()
     phase_parity()
@@ -4347,6 +4714,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     two_operand_entry = phase_eleven(fitted_6a, args.streamed_n, ref, tiled["witness"], entry,
                                      streamed_entry)
+    torch.cuda.empty_cache()
+    twelve = phase_twelve(fitted_6a, args.streamed_n)
+    entry.update(twelve["covariance_tile"])
+    for row, kind in ((streamed_entry, "tf32x3"), (one_pass_entry, "one_pass"), (bf16_entry, "bf16"),
+                      (f64_entry, "f64")):
+        row["launches_12c_twins"] = twelve["panel_strip_12c_twins"][kind]
     log(smi_line())
     log(json.dumps({"kernels": [entry, streamed_entry, bf16_entry, one_pass_entry, explicit_entry,
                                 f64_entry, two_operand_entry]}))

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONVERGENCE_FRACTION, DEFAULT_MAX_ITER, DEFAULT_MAX_TIME
+from ..models.gp import sweep_moments
 from ..models.multivariate_normal import MultivariateNormal
 from ..models.optimizer import AdamState, _adam_delta, _init_params
 from ..ops.covariance import cross_covariance, kernel_diag
@@ -186,11 +187,15 @@ class LargeScaleGP:
         return distributed_cross_covariance(self.mesh, self.kernel, self.x_local, self.n, xq,
                                             method=self.method)
 
+    def _sweep(self, c_local: torch.Tensor) -> torch.Tensor:
+        """``L^-1 C`` replicated from this rank's rows of C, swept once (the
+        rows are consumed in place)."""
+        return distributed_solve_lower_sharded_rhs_inplace(self.mesh, self.l_local, c_local, self.block)
+
     def _solve_lower_strip(self, xq: torch.Tensor) -> torch.Tensor:
         """``L^-1 K(X, xq)`` replicated: the cross-covariance's rows built
-        on their ranks and swept once (the rows are consumed in place)."""
-        return distributed_solve_lower_sharded_rhs_inplace(self.mesh, self.l_local, self._cross(xq),
-                                                           self.block)
+        on their ranks and swept once."""
+        return self._sweep(self._cross(xq))
 
     def predict(self, xq) -> torch.Tensor:
         """Sweep-free mean: each rank's rows of the cross-covariance against
@@ -206,16 +211,17 @@ class LargeScaleGP:
         kl = self._solve_lower_strip(xq)
         return kernel_diag(self.kernel, xq) - torch.sum(kl.square_(), dim=0)
 
-    def predict_mean_variance(self, xq) -> tuple[torch.Tensor, torch.Tensor]:
+    def predict_mean_variance(self, xq, block: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """One distributed forward sweep serves both moments: the mean is
         ``kl^T beta``, the variance ``k(x, x) - sum kl^2`` (squared in
-        place)."""
+        place). With ``block`` the queries are swept ``block`` columns at a
+        time, the last block zero-padded (``models/gp.sweep_moments``), so
+        that a query's answer does not depend on the others of the call:
+        what ``serving.AcceleratedGPServer`` relies on."""
         xq = self._query(xq)
         beta, _ = self._weights
-        kl = self._solve_lower_strip(xq)
-        mean = self.prior.mean(xq) + kl.mT @ beta
-        var = kernel_diag(self.kernel, xq) - torch.sum(kl.square_(), dim=0)
-        return mean, var
+        fit, quad = sweep_moments(self._sweep, self._cross(xq), beta, block)
+        return self.prior.mean(xq) + fit, kernel_diag(self.kernel, xq) - quad
 
     def predict_in_batches(self, xq, batch_size: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
         """(mean, variance) of a large query set, ``batch_size`` rows at a

@@ -13,12 +13,21 @@ collectives the layer uses. Nothing switches backend on its own. Where the
 environment names no world, :func:`initialize` sets up an explicit world of
 one over a TCP store on 127.0.0.1; where it names one and the set-up fails,
 it raises (the JAX package warns and carries on in one process).
+
+:func:`joined` makes this process a rank for the length of a ``with``
+block, and :func:`spawn` runs a function on a world of CPU ranks it starts
+(gloo): the port's counterpart of the JAX package's virtual CPU devices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import pickle
 import socket
+import tempfile
+import time
+import traceback
 from typing import Optional
 
 import torch
@@ -59,17 +68,16 @@ def initialize(
     torchrun's variables); where ``WORLD_SIZE`` is unset, a world of one.
     ``coordinator_address`` (``host:port`` or a ``tcp://`` / ``file://``
     URL), ``num_processes`` and ``process_id`` name it explicitly.
-    ``device``: this rank's device, by default ``cuda:LOCAL_RANK`` (CUDA
-    unless the caller asks for the CPU, ``device="cpu"``); ``backend``:
+    ``device``: this rank's device, by default, or where it is ``"cuda"``
+    with no index, ``cuda:LOCAL_RANK`` (CUDA unless the caller asks for the
+    CPU, ``device="cpu"``); ``backend``:
     ``"nccl"`` for a CUDA device and ``"gloo"`` for the CPU unless named.
     A failed set-up raises. An existing group is kept (its backend and
     world), and this rank's device is set."""
     global _DEVICE
-    if device is None:
-        device = resolve_device(None)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if backend == "nccl" and device.type != "cuda":
@@ -110,3 +118,83 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _DEVICE = None
+
+
+#: Seconds a world started by :func:`spawn` may take before its ranks are
+#: stopped and the call fails.
+SPAWN_TIMEOUT_S = 900.0
+
+
+@contextlib.contextmanager
+def joined(device=None):
+    """This process as a rank: of the process group that exists, else of
+    the world the environment names, else of a world of one on ``device``
+    (NCCL on the card, gloo on the CPU). Yields the matrix mesh; leaves a
+    group it made on exit."""
+    from .mesh import make_matrix_mesh
+
+    made = not dist.is_initialized()
+    if made:
+        initialize(device=device)
+    try:
+        yield make_matrix_mesh()
+    finally:
+        if made:
+            shutdown()
+
+
+def spawn(world: int, fn, timeout: float = SPAWN_TIMEOUT_S, **kwargs) -> list:
+    """``fn(mesh, **kwargs)`` on each rank of a world of ``world`` CPU
+    processes (gloo, a file store in a temporary directory, one thread a
+    rank); returns what each rank's ``fn`` returned, rank order. ``fn`` is
+    a module-level function (the ranks import it). Raises ``RuntimeError``
+    with the failing rank's traceback, or when the world outlasts
+    ``timeout`` (its ranks are then stopped)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        url = f"file://{tmp}/store"
+        procs = [ctx.Process(target=_spawned_rank, args=(r, world, url, fn, kwargs, tmp))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errors = [open(os.path.join(tmp, f"{r}.err")).read() for r in range(world)
+                  if os.path.exists(os.path.join(tmp, f"{r}.err"))]
+        if errors:
+            raise RuntimeError(f"a rank of the world of {world} failed:\n" + "\n".join(errors))
+        if hung:
+            raise RuntimeError(f"ranks {hung} of the world of {world} outlasted {timeout} s")
+        results = []
+        for r, p in enumerate(procs):
+            if p.exitcode != 0:
+                raise RuntimeError(f"rank {r} of the world of {world} exited with {p.exitcode}")
+            with open(os.path.join(tmp, f"{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def _spawned_rank(rank: int, world: int, url: str, fn, kwargs: dict, out_dir: str) -> None:
+    from .mesh import make_matrix_mesh
+
+    try:
+        torch.set_num_threads(1)  # the ranks share the host's cores
+        initialize(url, world, rank, device="cpu")
+        try:
+            result = fn(make_matrix_mesh(world), **kwargs)
+        finally:
+            shutdown()
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    except Exception:  # reported to the caller, then the rank ends
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(f"rank {rank}:\n{traceback.format_exc()}")
+        os._exit(1)

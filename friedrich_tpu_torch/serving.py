@@ -22,6 +22,16 @@ Typical use::
 
     with serving.AcceleratedGPServer(gp) as srv:   # on the model's card
         ...
+
+A :class:`~.parallel.large_scale.LargeScaleGP` spread over the ranks of a
+``torch.distributed`` world is served by rank 0, while every other rank
+runs :func:`follow`::
+
+    if mesh.rank == 0:
+        with serving.AcceleratedGPServer(gp) as srv:
+            ...
+    else:
+        serving.follow(gp)   # returns when rank 0's server closes
 """
 
 from __future__ import annotations
@@ -39,7 +49,8 @@ import numpy as np
 import torch
 
 from . import native
-from .utils.errors import ConfigError
+from .parallel.mesh import broadcast
+from .utils.errors import ConfigError, ShapeError
 from .utils.profiling import scope
 
 _BUNDLE_MAGIC = b"FRSERVE1"
@@ -163,8 +174,24 @@ class AcceleratedGPServer:
     ``predict_mean_variance`` (the covariance-tile kernel in cross mode and
     one triangular solve against the factor). ``model`` is anything with
     ``predict_mean_variance(xq, block=)`` taking a tensor and a ``state.x``
-    (or bare ``.x``) feature tensor: :class:`GaussianProcess` or
-    :class:`OutOfCoreGP`.
+    (or bare ``.x``) feature tensor: :class:`GaussianProcess`,
+    :class:`OutOfCoreGP` or :class:`LargeScaleGP` (row-sharded factor).
+
+    A ``LargeScaleGP`` predicts collectively: every rank of its mesh must
+    enter each sweep with the same queries. Where the JAX package's single
+    controller drives every device from one process, here the server runs
+    on rank 0 and every other rank runs :func:`follow`: before each sweep
+    rank 0 broadcasts the chunk's row count and solve width, then its rows,
+    and the followers take part in the same ``predict_mean_variance(rows,
+    block=)``; closing the server broadcasts a count of 0, which ends them.
+    Only rank 0's dispatcher thread sends collectives, so they stay in
+    order. A request of the wrong width is refused before any broadcast. A
+    world of one sends nothing. A failure after a chunk's broadcast (a
+    follower that died ends the world's process group; any rank's error
+    inside the sweep) is delivered to that chunk's waiters, and since the
+    ranks' collectives are then out of step, every later request is
+    answered with an error: the server never carries on with rank 0
+    alone.
 
     Thread per connection, like the daemon. Concurrent requests are
     batched continuously: while the device runs one batch, arrivals queue,
@@ -186,7 +213,15 @@ class AcceleratedGPServer:
                  port: Optional[int] = None, max_batch: int = 1 << 20,
                  max_rows: int = 4096, block: int = 256):
         self._model = model
-        # GaussianProcess keeps features on .state.x; OutOfCoreGP on .x
+        # a LargeScaleGP's ranks sweep together: rank 0 leads, the others follow()
+        self._mesh = getattr(model, "mesh", None)
+        if self._mesh is not None and self._mesh.rank != 0:
+            raise ConfigError(f"the server runs on rank 0; rank {self._mesh.rank} runs "
+                              f"serving.follow(model)")
+        self._spread = self._mesh is not None and self._mesh.size > 1
+        #: The error that left the ranks' collectives out of step, if any.
+        self.broken: Optional[BaseException] = None
+        # GaussianProcess keeps features on .state.x; OutOfCoreGP and LargeScaleGP on .x
         feats = getattr(model, "state", model).x
         self._d = int(feats.shape[1])
         self._x_dtype = feats.dtype  # the wire is float64; the model may be float32
@@ -301,7 +336,7 @@ class AcceleratedGPServer:
                 while not self._pending and not self._closing:
                     self._cond.wait(timeout=0.5)
                 if self._closing and not self._pending:
-                    return
+                    break
                 batch, self._pending = self._pending, []
             # chunk oversized merges, so that one giant batch cannot starve
             # the queue
@@ -314,16 +349,34 @@ class AcceleratedGPServer:
                 chunk, batch = batch[:take], batch[take:]
                 rows = rows[take:]
                 self._run_chunk(chunk, total)
+        if self._spread and self.broken is None:
+            try:
+                _send_header(self._mesh, 0, None)  # ends the followers
+            except Exception as e:  # noqa: BLE001 — a follower already gone
+                self.broken = e
 
     def _run_chunk(self, chunk, total: int) -> None:
         # the WHOLE body runs under try: an exception in the merge (not
         # only in the model call) must reach the waiters, not end the
         # dispatcher thread, which would leave every later request waiting
         try:
-            xq = torch.as_tensor(np.concatenate([c[0] for c in chunk], axis=0), dtype=self._x_dtype,
-                                 device=self._device)
-            with scope("serving/batch"):
-                mean, var = self._model.predict_mean_variance(xq, block=self.block)
+            if self.broken is not None:
+                raise RuntimeError(f"the ranks' sweeps are out of step after {self.broken!r}")
+            rows = np.concatenate([c[0] for c in chunk], axis=0)
+            if rows.ndim != 2 or rows.shape[1] != self._d:
+                # refused before any broadcast: the followers never see it
+                raise ShapeError(f"queries of shape {rows.shape}, the model takes width {self._d}")
+            xq = torch.as_tensor(rows, dtype=self._x_dtype, device=self._device)
+            try:
+                if self._spread:
+                    _send_header(self._mesh, total, self.block)
+                    broadcast(self._mesh, xq, 0)
+                with scope("serving/batch"):
+                    mean, var = self._model.predict_mean_variance(xq, block=self.block)
+            except Exception as e:
+                if self._spread:
+                    self.broken = e
+                raise
             mean = torch.as_tensor(mean).detach().to("cpu", torch.float64).numpy()
             var = torch.as_tensor(var).detach().to("cpu", torch.float64).numpy()
             self.dispatches[total] += 1
@@ -355,12 +408,44 @@ class AcceleratedGPServer:
         self._accept_thread.join(timeout=5)
         with self._cond:
             self._cond.notify()
+        # what is queued is answered first; a spread model's followers end
+        # with the dispatcher's last broadcast
+        self._dispatcher.join()
 
     def __enter__(self) -> "AcceleratedGPServer":
         return self
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _send_header(mesh, rows: int, block: Optional[int]) -> None:
+    """Rank 0's announcement of a sweep: its row count (0: the server
+    closed) and its solve width (0 for one solve of all the rows)."""
+    broadcast(mesh, torch.tensor([rows, block or 0], dtype=torch.int64, device=mesh.device), 0)
+
+
+def follow(model) -> int:
+    """Take part in the sweeps of an :class:`AcceleratedGPServer` that
+    serves ``model``, a ``LargeScaleGP``, from rank 0: on every other rank
+    of the model's mesh, receive each chunk's rows and run the same
+    ``predict_mean_variance(rows, block=)`` (its result is rank 0's to
+    send), until the server closes. Returns the number of sweeps taken
+    part in. An error inside a sweep propagates: a rank that dies of it
+    ends the world's process group, which fails rank 0's sweep in turn."""
+    mesh = model.mesh
+    if mesh.rank == 0:
+        raise ConfigError("rank 0 serves the model (AcceleratedGPServer); follow() runs on the others")
+    d = model.x.shape[1]
+    sweeps = 0
+    while True:
+        head = broadcast(mesh, torch.zeros(2, dtype=torch.int64, device=mesh.device), 0)
+        rows, block = (int(v) for v in head.tolist())
+        if rows == 0:
+            return sweeps
+        xq = broadcast(mesh, torch.empty((rows, d), dtype=model.x.dtype, device=mesh.device), 0)
+        model.predict_mean_variance(xq, block=block or None)
+        sweeps += 1
 
 
 class GPClient:

@@ -849,3 +849,50 @@ def test_predictions_are_batch_invariant_on_the_card(card, backend):
     for lo, hi in ((0, 1), (3, 40), (250, 700), (255, 257)):
         m, v = gp.predict_mean_variance(xq[lo:hi], block=256)
         assert torch.equal(m, mean[lo:hi]) and torch.equal(v, var[lo:hi])
+
+
+def test_served_large_scale_gp_on_the_card(card):
+    """``AcceleratedGPServer`` over a ``LargeScaleGP`` on NCCL's world of
+    one: each reply equals the model's ``predict_mean_variance(rows,
+    block=256)`` bit for bit, whatever it was merged with, and the world
+    sends no collective."""
+    import threading
+
+    from friedrich_tpu_torch import serving
+    from friedrich_tpu_torch.parallel import LargeScaleGP, make_matrix_mesh, multihost
+    from friedrich_tpu_torch.parallel.mesh import COLLECTIVES
+    from friedrich_tpu_torch.priors import ConstantPrior
+
+    rng = np.random.default_rng(82)
+    x = rng.normal(size=(3000, 4)).astype(np.float32)
+    y = np.sin(x[:, 0]).astype(np.float32)
+    requests = [rng.normal(size=(k, 4)) for k in (1, 300, 17, 256, 5)]
+    multihost.initialize(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0, device=card)
+    try:
+        gp = LargeScaleGP(make_matrix_mesh(1), KERNELS["Matern1"], ConstantPrior(0.2), 0.1, x, y,
+                          capacity=3072)
+        want = [[t.cpu().numpy() for t in gp.predict_mean_variance(q, block=256)] for q in requests]
+        COLLECTIVES.clear()
+        got, errors = [None] * len(requests), []
+        with serving.AcceleratedGPServer(gp) as srv:
+            barrier = threading.Barrier(len(requests))
+
+            def one(i):
+                try:
+                    with serving.GPClient(port=srv.port, timeout=120.0) as c:
+                        barrier.wait()
+                        got[i] = c.predict_mean_variance(requests[i])
+                except Exception as e:  # noqa: BLE001 — asserted below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120.0)
+        assert not errors, errors
+        assert dict(COLLECTIVES) == {}
+        for (mean, var), (want_mean, want_var) in zip(got, want):
+            assert np.array_equal(mean, want_mean) and np.array_equal(var, want_var)
+    finally:
+        multihost.shutdown()

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no module of ``friedrich_tpu_torch``, nor
-``chip_smoke.py``, nor the multi-rank tests' rank helper (which spawned
-ranks import) imports JAX, its libraries, or the JAX package."""
+"""The PyTorch port stands alone: no module of ``friedrich_tpu_torch`` (its
+example twins included), nor ``chip_smoke.py``, nor the multi-rank tests'
+rank helper (which spawned ranks import) imports JAX, its libraries, or the
+JAX package."""
 
 import ast
 import pathlib
@@ -52,6 +53,9 @@ def test_package_imports_with_jax_blocked():
         "from friedrich_tpu_torch.mcmc import sample_hyperparameters\n"
         "import friedrich_tpu_torch.parallel, friedrich_tpu_torch.entry\n"
         "import friedrich_tpu_torch.mcmc.sharded, friedrich_tpu_torch.mcmc.distributed_logprob\n"
+        "from friedrich_tpu_torch.examples import bayesian_hyperparameters, bayesian_optimization\n"
+        "from friedrich_tpu_torch.examples import distributed_gp, large_scale_fit, outofcore_gp\n"
+        "from friedrich_tpu_torch.examples import precision_modes, serving_deployment\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_parallel_ranks\n"
         "print('ok')\n"

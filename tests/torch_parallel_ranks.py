@@ -1,7 +1,7 @@
 """Ranks of the port's multi-rank tests (``tests/test_torch_parallel*.py``).
 
 :func:`run_world` starts a world of CPU processes (gloo, a file store in a
-temporary directory), each of which calls the named functions of this
+temporary directory: ``parallel/multihost.spawn``), each of which calls the named functions of this
 module in turn with its mesh and the given keyword arguments (numpy inputs,
 spec dicts) and hands back what they return. Spawned ranks import this
 module, so it imports torch and the port only, never JAX: the tests hold
@@ -9,12 +9,6 @@ the results against the JAX package in their own process.
 """
 
 from __future__ import annotations
-
-import os
-import pickle
-import tempfile
-import time
-import traceback
 
 import numpy as np
 import torch
@@ -26,59 +20,20 @@ WORLD_TIMEOUT_S = 240.0
 
 def run_world(world: int, calls: list, timeout: float = WORLD_TIMEOUT_S) -> list[dict]:
     """Run ``calls``, a list of ``(key, function name, kwargs)``, on every
-    rank of a world of ``world`` processes; returns one dict per rank, rank
-    order, of ``key -> result``. Raises ``AssertionError`` with the failing
-    rank's traceback, or when the world outlasts ``timeout``."""
-    import torch.multiprocessing as mp
+    rank of a world of ``world`` processes (``parallel/multihost.spawn``);
+    returns one dict per rank, rank order, of ``key -> result``. Raises with
+    the failing rank's traceback, or when the world outlasts ``timeout``."""
+    from friedrich_tpu_torch.parallel.multihost import spawn
 
-    ctx = mp.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        url = f"file://{tmp}/store"
-        procs = [ctx.Process(target=_rank_main, args=(r, world, url, calls, tmp))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 0.0))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        errors = [open(os.path.join(tmp, f"{r}.err")).read() for r in range(world)
-                  if os.path.exists(os.path.join(tmp, f"{r}.err"))]
-        if errors:
-            raise AssertionError(f"a rank of the world of {world} failed:\n" + "\n".join(errors))
-        if hung:
-            raise AssertionError(f"ranks {hung} of the world of {world} outlasted {timeout} s")
-        results = []
-        for r, p in enumerate(procs):
-            if p.exitcode != 0:
-                raise AssertionError(f"rank {r} of the world of {world} exited with {p.exitcode}")
-            with open(os.path.join(tmp, f"{r}.pkl"), "rb") as f:
-                results.append(pickle.load(f))
-        return results
+    return spawn(world, _run_calls, timeout=timeout, calls=calls)
 
 
-def _rank_main(rank: int, world: int, url: str, calls: list, out_dir: str) -> None:
-    try:
-        torch.set_num_threads(1)
-        from friedrich_tpu_torch import config
-        from friedrich_tpu_torch.parallel import make_matrix_mesh, multihost
+def _run_calls(mesh, calls: list) -> dict:
+    from friedrich_tpu_torch import config
 
-        config.set_device("cpu")
-        config.enable_x64()
-        multihost.initialize(url, world, rank, device="cpu")
-        mesh = make_matrix_mesh(world)
-        results = {key: globals()[name](mesh, **kwargs) for key, name, kwargs in calls}
-        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
-            pickle.dump(results, f)
-        multihost.shutdown()
-    except Exception:  # reported to the test, then the rank ends
-        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
-            f.write(f"rank {rank}:\n{traceback.format_exc()}")
-        os._exit(1)
+    config.set_device("cpu")
+    config.enable_x64()
+    return {key: globals()[name](mesh, **kwargs) for key, name, kwargs in calls}
 
 
 # ---------------------------------------------------------------------------
@@ -430,3 +385,130 @@ def ls_from_arrays(mesh, arrays, kernel, prior, block, xq):
     mean, var = gp.predict_mean_variance(xq)
     return {"mean": _np(mean), "var": _np(var), "lml": gp.log_marginal_likelihood(),
             "l_local": _np(gp.l_local)}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_serving_large_scale.py: a LargeScaleGP served from rank 0
+# ---------------------------------------------------------------------------
+
+
+def _serve_clients(port, requests, clients):
+    """``requests`` sent round-robin by ``clients`` client threads at once
+    (so that the server merges them); the replies in request order."""
+    import threading
+
+    from friedrich_tpu_torch import serving
+
+    replies, errors = [None] * len(requests), []
+    barrier = threading.Barrier(clients)
+
+    def run(i):
+        try:
+            with serving.GPClient(port=port, timeout=60.0) as c:
+                barrier.wait()
+                for k in range(i, len(requests), clients):
+                    replies[k] = c.predict_mean_variance(requests[k])
+        except Exception as e:  # reported to the test
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60.0)
+    return replies, errors
+
+
+def ls_serve(mesh, arrays, kernel, prior, block, requests, xq, solve_width, clients):
+    """The carried model served: rank 0 runs ``AcceleratedGPServer`` and
+    ``clients`` client threads, every other rank ``serving.follow``. Every
+    rank first answers each request in process at the server's width, and
+    ``xq`` at widths 8 and none."""
+    from friedrich_tpu_torch import ConfigError, serving
+    from friedrich_tpu_torch.interop import large_scale_from_arrays
+    from friedrich_tpu_torch.parallel.mesh import COLLECTIVES
+
+    # the "direct" distance makes the cross covariance elementwise, as the
+    # covariance kernel is on the card: a query's answer is then the same
+    # bits wherever a merged chunk puts it
+    gp = large_scale_from_arrays(mesh, arrays, kernel, prior, block=block, method="direct")
+    xq = torch.as_tensor(xq)
+    out = {"one_solve": [_np(t) for t in gp.predict_mean_variance(xq)],
+           "width_8": [_np(t) for t in gp.predict_mean_variance(xq, block=8)],
+           "in_process": [[_np(t) for t in gp.predict_mean_variance(torch.as_tensor(q),
+                                                                     block=solve_width)]
+                          for q in requests]}
+    COLLECTIVES.clear()
+    if mesh.rank != 0:
+        out["sweeps"] = serving.follow(gp)
+        out["collectives"] = dict(COLLECTIVES)
+        return out
+    with serving.AcceleratedGPServer(gp, block=solve_width) as srv:
+        with serving.GPClient(port=srv.port, timeout=60.0) as c:
+            try:
+                c.predict(np.zeros((2, gp.x.shape[1] + 1)))
+                out["wrong_width"] = "answered"
+            except ConfigError as e:
+                out["wrong_width"] = str(e)
+            out["wrong_width_collectives"] = dict(COLLECTIVES)
+        out["served"], out["errors"] = _serve_clients(srv.port, requests, clients)
+    out["sweeps"] = sum(srv.dispatches.values())
+    out["broken"] = repr(srv.broken) if srv.broken is not None else None
+    out["collectives"] = dict(COLLECTIVES)
+    return out
+
+
+def ls_serve_follower_fails(mesh, arrays, kernel, prior, block, requests):
+    """Rank 1's model raises in its second sweep, and rank 1 leaves the
+    world: rank 0 must answer that request and every later one with an
+    error, not wait."""
+    import torch.distributed as dist
+
+    from friedrich_tpu_torch import ConfigError, serving
+    from friedrich_tpu_torch.interop import large_scale_from_arrays
+
+    gp = large_scale_from_arrays(mesh, arrays, kernel, prior, block=block)
+    if mesh.rank != 0:
+        calls = []
+        inner = gp.predict_mean_variance
+
+        def flaky(xq, block=None):
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("rank 1 failed inside the sweep")
+            return inner(xq, block=block)
+
+        gp.predict_mean_variance = flaky
+        if mesh.rank == 1:
+            try:
+                serving.follow(gp)
+                return {"raised": None}
+            except RuntimeError as e:
+                dist.destroy_process_group()  # what the rank's exit would do
+                return {"raised": str(e)}
+        return {"raised": None}
+    statuses = []
+    with serving.AcceleratedGPServer(gp) as srv:
+        with serving.GPClient(port=srv.port, timeout=60.0) as c:
+            for q in requests:
+                try:
+                    c.predict_mean_variance(q)
+                    statuses.append("ok")
+                except ConfigError as e:
+                    statuses.append(str(e))
+    return {"statuses": statuses, "broken": srv.broken is not None}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_examples.py: the distributed_gp twin's flow on each rank
+# ---------------------------------------------------------------------------
+
+
+def example_distributed_gp(mesh, n, d, seed, dtype, probes):
+    """``friedrich_tpu_torch.examples.distributed_gp.run`` on this rank, with
+    the given Hutchinson probes; its numbers and whether rank 0's served
+    answers equal the in-process ones."""
+    from friedrich_tpu_torch.examples.distributed_gp import run
+
+    _, out = run(mesh, n=n, d=d, seed=seed, dtype=getattr(torch, dtype), probes=torch.as_tensor(probes))
+    return out
