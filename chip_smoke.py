@@ -256,6 +256,25 @@ def sync():
     return time.perf_counter()
 
 
+def device_ops(prof) -> list:
+    """``(name, start_ns, end_ns)`` of every kernel, copy and memset a
+    finished ``torch.profiler`` profile saw on the card (not the copies of
+    the host's named ranges there)."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+
+
+def busy_s(ops) -> float:
+    """Seconds in which any of ``ops`` ran: the union of their intervals
+    (``gpbench/trace.union_length``), so work overlapping on two streams
+    counts once."""
+    from gpbench.trace import union_length
+
+    return union_length((start, end) for _, start, end in ops) / 1e9
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()`` after one warm-up;
     each result is dropped before the next call."""
@@ -883,7 +902,7 @@ def profile_factor(kernel, x_pad, n: int, noise, **factor_kw) -> dict:
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         key=lambda r: -r[1],
     )
-    busy = sum(r[1] for r in kernels)
+    busy = busy_s(device_ops(prof))
     if busy <= 0:
         return {"wall_s": wall, "device_time": "not measured (the profiler recorded no device time)"}
     b2 = [r for r in kernels if "panel_strip" in r[0]]
@@ -1763,7 +1782,6 @@ def profile_sampler(sample, logp, res) -> dict:
     a finished run (its adaptation, from its last draws) under
     ``torch.profiler``: the sampler's device idle share."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1776,8 +1794,7 @@ def profile_sampler(sample, logp, res) -> dict:
                step_size=res.step_size, inv_mass=res.inv_mass)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e6
+    busy = busy_s(device_ops(prof))
     if busy <= 0:
         return {"wall_s": wall, "idle_share": "not measured (the profiler recorded no device time)"}
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall}
@@ -2467,31 +2484,19 @@ def ooc_profile(fn) -> dict:
     of the copies and of the kernels, how much of the two overlapped, and
     the device's idle share of the wall-clock."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def union(iv):
-        total, end = 0.0, -1.0
-        for a, b in sorted(iv):
-            if b <= end:
-                continue
-            total += b - max(a, end)
-            end = b
-        return total
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    copies, kernels = [], []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
-            iv = (e.time_range.start / 1e6, e.time_range.end / 1e6)
-            (copies if "memcpy" in e.name.lower() else kernels).append(iv)
-    if not copies and not kernels:
+    ops = [op for op in device_ops(prof) if op[2] > op[1]]
+    copies = [op for op in ops if "memcpy" in op[0].lower()]
+    kernels = [op for op in ops if "memcpy" not in op[0].lower()]
+    if not ops:
         return {"wall_s": wall, "device_time": "not measured (the profiler recorded no device time)"}
-    c, k, both = union(copies), union(kernels), union(copies + kernels)
+    c, k, both = busy_s(copies), busy_s(kernels), busy_s(ops)
     return {"wall_s": wall, "copy_busy_s": c, "kernel_busy_s": k, "overlap_s": c + k - both,
             "overlap_share_of_copies": (c + k - both) / c if c else None,
             "idle_share": 1.0 - both / wall, "copies": len(copies), "kernels": len(kernels)}
@@ -2894,7 +2899,7 @@ def profiled(fn):
         elif e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             kernels.append((e.key, e.self_device_time_total / 1e6, e.count))
     kernels.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in kernels)
+    busy = busy_s(device_ops(prof))
     breakdown = {"wall_s": wall, "trace_bytes": trace_bytes, "scopes": scopes,
                  "kernels": [{"name": k[:80], "s": t, "share_of_wall": t / wall, "count": c}
                              for k, t, c in kernels[:10]]}

@@ -154,7 +154,6 @@ def _build_subtree(val_grad, edge, h0: float, eps: float, forward: bool, depth: 
                     divergent)
 
 
-@scope("nuts/transition")
 def transition(val_grad, z0, logp0, g0, eps: float, inv_mass, max_depth: int, draws):
     """One NUTS transition of one chain from ``z0`` (its density ``logp0``
     and gradient ``g0``) at step size ``eps`` (``friedrich_tpu/mcmc/
@@ -162,35 +161,36 @@ def transition(val_grad, z0, logp0, g0, eps: float, inv_mass, max_depth: int, dr
     divergent)``: the proposal with its density and gradient as tensors,
     the trajectory-averaged acceptance statistic, the tree depth and the
     divergence flag as host values."""
-    r0 = draws.momentum(z0.shape[0]).to(dtype=z0.dtype, device=z0.device) / torch.sqrt(inv_mass)
-    h0 = float(_energy(logp0, r0, inv_mass))
-    minus = plus = (z0, r0, g0)
-    z_prop, logp_prop, g_prop = z0, logp0, g0
-    log_weight, sum_alpha, n_alpha = 0.0, 0.0, 0
-    depth, turning, divergent = 0, False, False
-    while depth < max_depth and not turning and not divergent:
-        forward = draws.direction()
-        sub = _build_subtree(val_grad, plus if forward else minus, h0, eps, forward, depth, inv_mass,
-                             max_depth, draws)
-        if forward:
-            plus = (sub.z, sub.r, sub.g)
-        else:
-            minus = (sub.z, sub.r, sub.g)
-        ok = not sub.turning and not sub.divergent
-        # biased progressive merge (Stan): take the subtree's proposal with
-        # probability min(1, w_sub / w_old)
-        u = draws.merge_uniform()
-        if ok and log_uniform(u) < sub.log_weight - log_weight:
-            z_prop, logp_prop, g_prop = sub.z_prop, sub.logp_prop, sub.g_prop
-        if ok:
-            log_weight = _logaddexp(log_weight, sub.log_weight)
-        # the whole trajectory's U-turn check after the merge
-        turning = sub.turning or bool(_turning(minus[0], minus[1], plus[0], plus[1], inv_mass))
-        sum_alpha += sub.sum_alpha
-        n_alpha += sub.leaves
-        depth += 1
-        divergent = divergent or sub.divergent
-    return z_prop, logp_prop, g_prop, sum_alpha / max(n_alpha, 1), depth, divergent
+    with scope("nuts/transition"):
+        r0 = draws.momentum(z0.shape[0]).to(dtype=z0.dtype, device=z0.device) / torch.sqrt(inv_mass)
+        h0 = float(_energy(logp0, r0, inv_mass))
+        minus = plus = (z0, r0, g0)
+        z_prop, logp_prop, g_prop = z0, logp0, g0
+        log_weight, sum_alpha, n_alpha = 0.0, 0.0, 0
+        depth, turning, divergent = 0, False, False
+        while depth < max_depth and not turning and not divergent:
+            forward = draws.direction()
+            sub = _build_subtree(val_grad, plus if forward else minus, h0, eps, forward, depth,
+                                 inv_mass, max_depth, draws)
+            if forward:
+                plus = (sub.z, sub.r, sub.g)
+            else:
+                minus = (sub.z, sub.r, sub.g)
+            ok = not sub.turning and not sub.divergent
+            # biased progressive merge (Stan): take the subtree's proposal with
+            # probability min(1, w_sub / w_old)
+            u = draws.merge_uniform()
+            if ok and log_uniform(u) < sub.log_weight - log_weight:
+                z_prop, logp_prop, g_prop = sub.z_prop, sub.logp_prop, sub.g_prop
+            if ok:
+                log_weight = _logaddexp(log_weight, sub.log_weight)
+            # the whole trajectory's U-turn check after the merge
+            turning = sub.turning or bool(_turning(minus[0], minus[1], plus[0], plus[1], inv_mass))
+            sum_alpha += sub.sum_alpha
+            n_alpha += sub.leaves
+            depth += 1
+            divergent = divergent or sub.divergent
+        return z_prop, logp_prop, g_prop, sum_alpha / max(n_alpha, 1), depth, divergent
 
 
 def sample_nuts(

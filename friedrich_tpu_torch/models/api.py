@@ -13,6 +13,7 @@ swaps it on mutation.
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import Any, Optional
 
 import torch
@@ -26,12 +27,23 @@ from ..config import (
 )
 from ..conversion import as_input_matrix, as_output_vector
 from ..utils.errors import CholeskyError, ConfigError, ShapeError
+from ..utils.profiling import scope
 from . import gp as core
 from .multivariate_normal import MultivariateNormal
 from .optimizer import fit_parameters as _fit_parameters
 
 #: ``predict_in_batches`` default chunk of queries.
 DEFAULT_PREDICT_BATCH = 8192
+
+#: :meth:`GaussianProcess.add_samples` calls in this process, by how the
+#: factor took the new rows: ``"copied"`` (into a copy of the factor),
+#: ``"in_place"`` (into the factor itself, where two do not fit the card),
+#: ``"rebuilt"`` (a bf16-stored factor refactored) or ``"grown"`` (into a
+#: larger buffer first).
+APPENDS: Counter = Counter()
+#: Bytes of factor those calls copied: the whole factor for a copying
+#: append, and the old factor into the buffer of a grown one.
+APPEND_COPY_BYTES = 0
 
 _DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
@@ -45,6 +57,16 @@ def check_dtype(dtype) -> torch.dtype:
     if dtype not in _DTYPES:
         raise ConfigError(f"model dtype must be float32 or float64, got {dtype}")
     return _DTYPES[dtype]
+
+
+def _count_append(mode: str, copied: int, span) -> None:
+    """Count one append in :data:`APPENDS` and :data:`APPEND_COPY_BYTES`,
+    and name its mode on the ``gp/add_samples`` span."""
+    global APPEND_COPY_BYTES
+    APPENDS[mode] += 1
+    APPEND_COPY_BYTES += copied
+    if span is not None:
+        span.attrs.update(mode=mode, copy_bytes=copied)
 
 
 class GaussianProcess:
@@ -260,7 +282,14 @@ class GaussianProcess:
         bf16 factors fit the card, and the model is unchanged on failure;
         into the factor's own buffer where they do not, and a failure
         refactors the model at the old n (the JAX package's recovery of a
-        grown buffer). A grown model rebuilds into its fresh buffer."""
+        grown buffer). A grown model rebuilds into its fresh buffer.
+
+        Each call is a ``gp/add_samples`` scope whose ``mode`` attribute is
+        its key in :data:`APPENDS`."""
+        with scope("gp/add_samples") as span:
+            self._add_samples(inputs, outputs, span)
+
+    def _add_samples(self, inputs, outputs, span) -> None:
         state = self._state
         x_new, _ = as_input_matrix(inputs, dtype=state.x.dtype, device=state.x.device)
         y_new = as_output_vector(outputs, dtype=state.resid.dtype, device=state.x.device)
@@ -273,16 +302,23 @@ class GaussianProcess:
             )
         n, k, cap = state.n, x_new.shape[0], state.capacity
         grew = n + k > cap
+        copied = 0
         if grew:
             # amortized growth, extendable_matrix.rs:38 (x1.5 policy); a
             # bf16-storage append rebuilds, so the old factor is not copied
+            copy = state.storage != "bf16"
+            copied = state.l.numel() * state.l.element_size() if copy else 0
             state = core.grow_capacity(state, max(n + k, math.ceil(cap * GROWTH_FACTOR)),
-                                       copy_factor=state.storage != "bf16")
+                                       copy_factor=copy)
         if state.storage == "bf16":
+            _count_append("grown" if grew else "rebuilt", copied, span)
             self._append_rebuild(state, x_new, y_new, grew)
             return
         in_place = not config.two_matrices_fit(state.capacity, state.l.element_size(),
                                                state.l.device)
+        if not in_place:
+            copied += state.l.numel() * state.l.element_size()
+        _count_append("grown" if grew else "in_place" if in_place else "copied", copied, span)
         new_state = core.add_samples_padded(state, x_new, y_new, in_place=in_place)
         # validate BEFORE committing: a failed rank-update must not leave the
         # model corrupted for callers that catch the error and keep using it

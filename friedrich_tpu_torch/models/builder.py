@@ -20,8 +20,9 @@ hyperparameters on a subset first and builds the full model once.
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
@@ -35,6 +36,7 @@ from ..conversion import as_input_matrix, as_output_vector
 from ..kernels import Gaussian
 from ..priors import ConstantPrior
 from ..utils.errors import ConfigError
+from ..utils.profiling import scope, timed
 from .api import GaussianProcess, check_dtype
 from .gp import check_backend, resolve_backend
 from .optimizer import auto_subsample, subset_indices
@@ -75,7 +77,8 @@ class GaussianProcessBuilder:
         self._fit_gradient = "auto"
         self._fit_polish = False
         #: Wall-clock seconds of each step of the last :meth:`train`
-        #: (device work included), and the sub-fit's ADAM iterations.
+        #: (device work included: the ``builder/<step>`` span, synchronised
+        #: at both ends), and the sub-fit's ADAM iterations.
         self.timings: dict = {}
 
     # -- setters (builder.rs:102-182) ----------------------------------------
@@ -240,7 +243,22 @@ class GaussianProcessBuilder:
             panel_block=self._panel_block, storage=self._storage, precision=self._precision,
         )
 
+    @contextlib.contextmanager
+    def _step(self, key: str, device: torch.device) -> Iterator[None]:
+        """One step of :meth:`train`: the span ``builder/<key>``, the device
+        synchronised at both ends, its seconds in ``timings[key]``."""
+        _clock(device)
+        log: list = []
+        with timed(f"builder/{key}", log):
+            yield
+            _clock(device)
+        self.timings[key] = log[0][1]
+
     def train(self) -> GaussianProcess:
+        with scope("builder/train"):
+            return self._train()
+
+    def _train(self) -> GaussianProcess:
         x, y = self._x, self._y
         if self._dtype is not None:
             x = x.to(self._dtype)
@@ -256,26 +274,23 @@ class GaussianProcessBuilder:
         self.timings = {}
         kernel = self._kernel
         if self._should_fit_kernel:
-            t0 = _clock(x.device)
-            kernel = kernel.heuristic_fit(x, y)
-            self.timings["heuristic"] = _clock(x.device) - t0
+            with self._step("heuristic", x.device):
+                kernel = kernel.heuristic_fit(x, y)
             sub = self._resolved_subsample(x.shape[0])
             if sub is not None:
                 return self._train_subfit_first(x, y, kernel, sub)
-        t0 = _clock(x.device)
-        gp = self._new_full(self._prior, kernel, self._noise, x, y)
-        self.timings["build"] = _clock(x.device) - t0
+        with self._step("build", x.device):
+            gp = self._new_full(self._prior, kernel, self._noise, x, y)
         if self._should_fit_prior or self._should_fit_kernel:
-            t0 = _clock(x.device)
-            gp.fit_parameters(
-                fit_prior=self._should_fit_prior,
-                fit_kernel=self._should_fit_kernel,
-                max_iter=self._max_iter,
-                convergence_fraction=self._convergence_fraction,
-                max_time=self._max_time,
-                gradient=self._fit_gradient,
-            )
-            self.timings["fit"] = _clock(x.device) - t0
+            with self._step("fit", x.device):
+                gp.fit_parameters(
+                    fit_prior=self._should_fit_prior,
+                    fit_kernel=self._should_fit_kernel,
+                    max_iter=self._max_iter,
+                    convergence_fraction=self._convergence_fraction,
+                    max_time=self._max_time,
+                    gradient=self._fit_gradient,
+                )
             self.timings["fit_iterations"] = gp.fit_iterations
         return gp
 
@@ -308,36 +323,34 @@ class GaussianProcessBuilder:
         storage and no precision the JAX package gives it "f32", which on
         the card is the same arithmetic as None.
         """
-        t0 = _clock(x.device)
-        prior = self._prior
-        if self._should_fit_prior:
-            prior = prior.fit(x, y)
-        idx = subset_indices(x.shape[0], sub, 0, x.device)
-        streamed = resolve_backend("auto", sub, x.dtype, x.device) == "streamed"
-        sub_gp = self._new(
-            prior, kernel, self._noise, x[idx], y[idx], backend="auto",
-            precision=self._precision if streamed else None,
-        )
-        sub_gp.fit_parameters(
-            fit_prior=False,
-            fit_kernel=True,
-            max_iter=self._max_iter,
-            convergence_fraction=self._convergence_fraction,
-            max_time=self._max_time,
-            gradient=self._fit_gradient,
-        )
-        self.timings["subfit"] = _clock(x.device) - t0
+        with self._step("subfit", x.device):
+            prior = self._prior
+            if self._should_fit_prior:
+                prior = prior.fit(x, y)
+            idx = subset_indices(x.shape[0], sub, 0, x.device)
+            streamed = resolve_backend("auto", sub, x.dtype, x.device) == "streamed"
+            sub_gp = self._new(
+                prior, kernel, self._noise, x[idx], y[idx], backend="auto",
+                precision=self._precision if streamed else None,
+            )
+            sub_gp.fit_parameters(
+                fit_prior=False,
+                fit_kernel=True,
+                max_iter=self._max_iter,
+                convergence_fraction=self._convergence_fraction,
+                max_time=self._max_time,
+                gradient=self._fit_gradient,
+            )
         self.timings["subfit_iterations"] = sub_gp.fit_iterations
         if self._fit_polish:
             from .map_fit import polish_map
 
             # short exact-LML corrective pass from the ADAM endpoint, at the
             # sub-model's size
-            t0 = _clock(x.device)
-            sub_gp = GaussianProcess(polish_map(sub_gp.state, precision=sub_gp.state.precision,
-                                                max_time=self._max_time))
-            self.timings["polish"] = _clock(x.device) - t0
-        t0 = _clock(x.device)
-        gp = self._new_full(prior, sub_gp.kernel, sub_gp.noise, x, y)
-        self.timings["build"] = _clock(x.device) - t0
+            with self._step("polish", x.device):
+                sub_gp = GaussianProcess(polish_map(sub_gp.state,
+                                                    precision=sub_gp.state.precision,
+                                                    max_time=self._max_time))
+        with self._step("build", x.device):
+            gp = self._new_full(prior, sub_gp.kernel, sub_gp.noise, x, y)
         return gp

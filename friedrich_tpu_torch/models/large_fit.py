@@ -129,9 +129,12 @@ def fit_kernel_noise_large(
     Dispatches on ``kernel.is_scalable`` like ``fit_parameters``
     (``mod.rs:434-444``). ``probes`` (cap, s) replaces the
     :func:`make_probes` draw of ``num_probes`` and ``seed``; ``fit_log``
-    records each applied iteration (a converging step is not applied). The
-    input state's factor buffer is overwritten by the first rebuild, so use
-    the returned state only; a failed rebuild raises :class:`CholeskyError`
+    records each applied iteration (a converging step is not applied). Each
+    step is a ``fit_large/iteration`` scope, its ``applied`` attribute false
+    for the converging step, around ``fit_large/solves``, ``/grad_matvec``,
+    ``/adam`` and ``/rebuild``. The input state's factor buffer is
+    overwritten by the first rebuild, so use the returned state only; a
+    failed rebuild raises :class:`CholeskyError`
     and the state cannot be recovered (the reference panics here,
     ``algebra/mod.rs:90``).
     """
@@ -147,16 +150,21 @@ def fit_kernel_noise_large(
     t0 = time.monotonic()
     i = 0
     for i in range(1, max_iter + 1):
-        adam, kernel, noise, progress, info = _grad_step_large(
-            state, adam, probes, i, convergence_fraction, scalable
-        )
-        if not progress:
-            # converged: stop WITHOUT applying the sub-threshold update
-            # (see the module docstring)
-            break
-        state, ok = rebuild_cholesky(state.replace(kernel=kernel, noise=noise),
-                                     reuse_buffer=True)
-        if not bool(ok):
+        with scope("fit_large/iteration", applied=True) as span:
+            adam, kernel, noise, progress, info = _grad_step_large(
+                state, adam, probes, i, convergence_fraction, scalable
+            )
+            if not progress:
+                # converged: stop WITHOUT applying the sub-threshold update
+                # (see the module docstring)
+                if span is not None:
+                    span.attrs["applied"] = False
+                break
+            with scope("fit_large/rebuild"):
+                state, ok = rebuild_cholesky(state.replace(kernel=kernel, noise=noise),
+                                             reuse_buffer=True)
+            ok = bool(ok)
+        if not ok:
             raise CholeskyError(
                 "Cholesky decomposition failed during hyperparameter fitting; "
                 "consider setting `cholesky_epsilon`."

@@ -36,6 +36,7 @@ runs :func:`follow`::
 
 from __future__ import annotations
 
+import itertools
 import socket
 import struct
 import subprocess
@@ -51,7 +52,7 @@ import torch
 from . import native
 from .parallel.mesh import broadcast
 from .utils.errors import ConfigError, ShapeError
-from .utils.profiling import scope
+from .utils.profiling import record_span, recording, scope
 
 _BUNDLE_MAGIC = b"FRSERVE1"
 _REQ_MAGIC = 0x46525131
@@ -207,6 +208,19 @@ class AcceleratedGPServer:
     Batches are chunked above ``max_rows``; a lone request dispatches at
     once. ``dispatches`` counts the sweeps by their rows and
     ``requests_per_dispatch`` the requests each merged.
+
+    While spans are recorded (``utils/profiling.record_spans``), each
+    request gives a ``serving/request`` span on its connection's thread,
+    from its header to its reply sent, and a ``serving/queue`` span, from
+    its enqueue to the start of the sweep that answers it, both with its
+    ``request`` id; the dispatcher gives ``serving/wait`` while nothing is
+    queued, ``serving/busy`` from then until it finds the queue empty
+    again (so that the host's time between two sweeps has a range), and
+    inside it one ``serving/dispatch`` per chunk (``rows``, ``requests``,
+    ``block`` and the request ``ids``), from taking it to the last waiter
+    woken, around ``serving/merge`` (rows merged and copied to the
+    device), ``serving/batch`` (the sweep queued) and ``serving/fetch``
+    (the answers copied back, where the host waits for the device).
     """
 
     def __init__(self, model, host: str = "127.0.0.1",
@@ -231,7 +245,9 @@ class AcceleratedGPServer:
         self.block = block
         self.dispatches: Counter = Counter()
         self.requests_per_dispatch: Counter = Counter()
-        self._pending: list = []  # [xq, out_slot, event] triples
+        self._request_ids = itertools.count(1)
+        # (xq, out_slot, event, request id, enqueue time_ns or 0 unrecorded)
+        self._pending: list = []
         self._cond = threading.Condition()
         self._closing = False
         self._dispatcher = threading.Thread(target=self._dispatch_loop, daemon=True)
@@ -271,44 +287,54 @@ class AcceleratedGPServer:
                 head = self._recv_exact(conn, 8)
                 if head is None:
                     return
-                magic, flags = struct.unpack("<II", head)
-                if magic != _REQ_MAGIC:
+                request = next(self._request_ids)
+                started = time.time_ns() if recording() else 0
+                keep = self._answer(conn, head, request)
+                if started:
+                    record_span("serving/request", started, time.time_ns(), request=request)
+                if not keep:
                     return
-                dims = self._recv_exact(conn, 16)
-                if dims is None:
-                    return
-                nq, d = struct.unpack("<QQ", dims)
-                if nq == 0 or nq > self._max_batch or d != self._d:
-                    # drain the payload so that the connection stays usable
-                    # for the next request (the daemon closes instead)
-                    if nq <= self._max_batch:
-                        self._recv_exact(conn, 8 * nq * d)
-                    conn.sendall(struct.pack("<IIQ", _RESP_MAGIC, 1, 0))
-                    if nq > self._max_batch:
-                        return
-                    continue
-                data = self._recv_exact(conn, 8 * nq * d)
-                if data is None:
-                    return
-                xq = np.frombuffer(data, dtype="<f8").reshape(nq, d)
-                try:
-                    mean, var = self._predict(xq)
-                except Exception:  # noqa: BLE001 — model or device error:
-                    # the request was well formed; a status-2 reply keeps
-                    # the connection usable
-                    conn.sendall(struct.pack("<IIQ", _RESP_MAGIC, 2, 0))
-                    continue
-                conn.sendall(
-                    struct.pack("<IIQ", _RESP_MAGIC, 0, nq)
-                    + mean.astype("<f8").tobytes()
-                    + (var.astype("<f8").tobytes() if flags & _FLAG_VARIANCE else b"")
-                )
         except OSError:
             return
         finally:
             conn.close()
 
-    def _predict(self, xq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def _answer(self, conn, head: bytes, request: int) -> bool:
+        """Read the rest of the request whose header is ``head`` and send
+        its reply; False where the connection is to be closed."""
+        magic, flags = struct.unpack("<II", head)
+        if magic != _REQ_MAGIC:
+            return False
+        dims = self._recv_exact(conn, 16)
+        if dims is None:
+            return False
+        nq, d = struct.unpack("<QQ", dims)
+        if nq == 0 or nq > self._max_batch or d != self._d:
+            # drain the payload so that the connection stays usable for the
+            # next request (the daemon closes instead)
+            if nq <= self._max_batch:
+                self._recv_exact(conn, 8 * nq * d)
+            conn.sendall(struct.pack("<IIQ", _RESP_MAGIC, 1, 0))
+            return nq <= self._max_batch
+        data = self._recv_exact(conn, 8 * nq * d)
+        if data is None:
+            return False
+        xq = np.frombuffer(data, dtype="<f8").reshape(nq, d)
+        try:
+            mean, var = self._predict(xq, request)
+        except Exception:  # noqa: BLE001 — model or device error: the
+            # request was well formed; a status-2 reply keeps the
+            # connection usable
+            conn.sendall(struct.pack("<IIQ", _RESP_MAGIC, 2, 0))
+            return True
+        conn.sendall(
+            struct.pack("<IIQ", _RESP_MAGIC, 0, nq)
+            + mean.astype("<f8").tobytes()
+            + (var.astype("<f8").tobytes() if flags & _FLAG_VARIANCE else b"")
+        )
+        return True
+
+    def _predict(self, xq: np.ndarray, request: int = 0) -> tuple[np.ndarray, np.ndarray]:
         """Submit to the continuous-batching dispatcher and wait."""
         out: dict = {}
         ev = threading.Event()
@@ -317,7 +343,7 @@ class AcceleratedGPServer:
                 # the dispatcher may already have drained and exited; an
                 # enqueue now would wait forever
                 raise RuntimeError("server is closing")
-            self._pending.append((xq, out, ev))
+            self._pending.append((xq, out, ev, request, time.time_ns() if recording() else 0))
             self._cond.notify()
         # bounded waits, so that a dead dispatcher cannot hang the
         # connection's thread: if it exits while the event is unset, the
@@ -333,11 +359,27 @@ class AcceleratedGPServer:
         """Continuous batching: everything queued runs as ONE sweep."""
         while True:
             with self._cond:
-                while not self._pending and not self._closing:
-                    self._cond.wait(timeout=0.5)
+                if not self._pending and not self._closing:
+                    with scope("serving/wait"):
+                        while not self._pending and not self._closing:
+                            self._cond.wait(timeout=0.5)
                 if self._closing and not self._pending:
                     break
+            with scope("serving/busy"):
+                self._drain()
+        if self._spread and self.broken is None:
+            try:
+                _send_header(self._mesh, 0, None)  # ends the followers
+            except Exception as e:  # noqa: BLE001 — a follower already gone
+                self.broken = e
+
+    def _drain(self) -> None:
+        """Sweep what is queued until the queue is found empty."""
+        while True:
+            with self._cond:
                 batch, self._pending = self._pending, []
+            if not batch:
+                return
             # chunk oversized merges, so that one giant batch cannot starve
             # the queue
             rows = [b[0].shape[0] for b in batch]
@@ -349,24 +391,31 @@ class AcceleratedGPServer:
                 chunk, batch = batch[:take], batch[take:]
                 rows = rows[take:]
                 self._run_chunk(chunk, total)
-        if self._spread and self.broken is None:
-            try:
-                _send_header(self._mesh, 0, None)  # ends the followers
-            except Exception as e:  # noqa: BLE001 — a follower already gone
-                self.broken = e
 
     def _run_chunk(self, chunk, total: int) -> None:
+        with scope("serving/dispatch", rows=total, requests=len(chunk), block=self.block,
+                   ids=tuple(c[3] for c in chunk)) as span:
+            if span is not None:
+                for x, _, _, request, queued in chunk:
+                    if queued:
+                        record_span("serving/queue", queued, span.start_ns, request=request,
+                                    rows=x.shape[0])
+            self._answer_chunk(chunk, total)
+
+    def _answer_chunk(self, chunk, total: int) -> None:
         # the WHOLE body runs under try: an exception in the merge (not
         # only in the model call) must reach the waiters, not end the
         # dispatcher thread, which would leave every later request waiting
         try:
             if self.broken is not None:
                 raise RuntimeError(f"the ranks' sweeps are out of step after {self.broken!r}")
-            rows = np.concatenate([c[0] for c in chunk], axis=0)
-            if rows.ndim != 2 or rows.shape[1] != self._d:
-                # refused before any broadcast: the followers never see it
-                raise ShapeError(f"queries of shape {rows.shape}, the model takes width {self._d}")
-            xq = torch.as_tensor(rows, dtype=self._x_dtype, device=self._device)
+            with scope("serving/merge"):
+                rows = np.concatenate([c[0] for c in chunk], axis=0)
+                if rows.ndim != 2 or rows.shape[1] != self._d:
+                    # refused before any broadcast: the followers never see it
+                    raise ShapeError(f"queries of shape {rows.shape}, the model takes width "
+                                     f"{self._d}")
+                xq = torch.as_tensor(rows, dtype=self._x_dtype, device=self._device)
             try:
                 if self._spread:
                     _send_header(self._mesh, total, self.block)
@@ -377,19 +426,20 @@ class AcceleratedGPServer:
                 if self._spread:
                     self.broken = e
                 raise
-            mean = torch.as_tensor(mean).detach().to("cpu", torch.float64).numpy()
-            var = torch.as_tensor(var).detach().to("cpu", torch.float64).numpy()
+            with scope("serving/fetch"):
+                mean = torch.as_tensor(mean).detach().to("cpu", torch.float64).numpy()
+                var = torch.as_tensor(var).detach().to("cpu", torch.float64).numpy()
             self.dispatches[total] += 1
             self.requests_per_dispatch[len(chunk)] += 1
             off = 0
-            for x, out, ev in chunk:
+            for x, out, ev, _, _ in chunk:
                 k = x.shape[0]
                 out["mean"] = mean[off:off + k]
                 out["var"] = var[off:off + k]
                 off += k
                 ev.set()
         except Exception as e:  # noqa: BLE001 — delivered to every waiter
-            for _, out, ev in chunk:
+            for _, out, ev, _, _ in chunk:
                 out["error"] = e
                 ev.set()
 

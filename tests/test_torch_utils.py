@@ -35,6 +35,15 @@ def test_profiling_utils_smoke():
     with profiling.timed("unlogged"):  # no log: nothing to append
         pass
     assert len(log) == 1
+    # timed through the span recorder: one clock, the span's own length
+    with profiling.record_spans():
+        with profiling.timed("recorded", log) as span:
+            torch.ones(4).sum()
+        with profiling.timed("recorded/unlogged"):
+            pass
+    spans = profiling.drain()
+    assert [s.name for s in spans] == ["recorded", "recorded/unlogged"]
+    assert spans[0] is span and log[1] == ("recorded", span.seconds) and len(log) == 2
 
 
 def _scope_names(prof):
@@ -70,6 +79,60 @@ def test_trace_is_written(tmp_path):
     assert any(ev.get("name") == "gp/predict_mean" for ev in trace["traceEvents"])
     with pytest.raises(RuntimeError, match="no trace"):
         profiling.stop_trace()
+
+
+class _Event:
+    """The part of a kineto event that ``chip_smoke.device_ops`` reads."""
+
+    def __init__(self, name, start, end, device, annotation=False):
+        self._args = name, start, end, device, annotation
+
+    def name(self):
+        return self._args[0]
+
+    def start_ns(self):
+        return self._args[1]
+
+    def end_ns(self):
+        return self._args[2]
+
+    def device_type(self):
+        return self._args[3]
+
+    def is_user_annotation(self):
+        return self._args[4]
+
+
+def test_chip_smokes_idle_share_counts_overlapping_streams_once():
+    """The bring-up check's device busy time is the union of the card's
+    intervals: two kernels overlapping on two streams count once, the
+    host's ranges and their copies on the card not at all; a trace of the
+    host alone reads no device time."""
+    import chip_smoke
+    from torch.autograd import DeviceType
+
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    events = [_Event("gemm", 0, 100, cuda), _Event("trsm", 50, 150, cuda),  # two streams
+              _Event("Memcpy DtoD", 200, 250, cuda),
+              _Event("gp/predict_mean", 0, 1_000, cuda, annotation=True),
+              _Event("gp/predict_mean", 0, 1_000, cpu, annotation=True),
+              _Event("aten::mm", 0, 1_000, cpu)]
+
+    class Prof:
+        class profiler:
+            class kineto_results:
+                @staticmethod
+                def events():
+                    return events
+
+    ops = chip_smoke.device_ops(Prof)
+    assert [op[0] for op in ops] == ["gemm", "trsm", "Memcpy DtoD"]
+    assert sum(end - start for _, start, end in ops) == 250  # the sum the check used to take
+    assert chip_smoke.busy_s(ops) == pytest.approx(200e-9)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.scope("gp/predict_mean"):
+            torch.ones(8).cumsum(0)
+    assert chip_smoke.device_ops(prof) == [] and chip_smoke.busy_s([]) == 0
 
 
 def test_debugging_utils():
