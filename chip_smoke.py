@@ -315,27 +315,32 @@ def test_kernels():
     }
 
 
+#: The warp-specialized panel-strip kernels, whose blocks start at 168
+#: registers a thread for setmaxnreg to split.
+WS_KERNELS = ("panel_strip_ws_kernel", "panel_strip_tf32x3_ws_kernel")
+
+
 def ptxas_table(report: str) -> dict:
-    """Registers, static shared memory and spill stores of each kernel
-    instantiation in the ``-Xptxas -v`` report, by readable name: the
-    covariance kernel by dtype, method and map (a leaf, or the program
-    interpreter), the panel-strip kernels by their template arguments."""
+    """Registers, static shared memory, spill stores and ptxas's wgmma
+    serialization notes of each kernel instantiation in the ``-Xptxas -v``
+    report, by readable name: the covariance kernel by dtype, method and map
+    (a leaf, or the program interpreter), the panel-strip kernels by their
+    template arguments. ``serialized`` lists the codes of the notes that
+    name the instantiation (C7513, C7518, ...: ptxas made its ``wgmma``
+    wait one by one), empty where its ``wgmma`` stay asynchronous."""
     from friedrich_tpu_torch.ops.cuda import build
 
     maps = {str(op): cls.__name__ for cls, op in build.OPCODES.items()}
     maps["n1"] = "program"
     methods = {str(v): k for k, v in build.METHODS.items()}
     dtypes = {"f": "float", "d": "double"}
-    table: dict = {}
-    entry, spill = None, 0
-    for line in report.splitlines():  # each entry function, its spills, its "Used N registers"
-        m = re.search(r"Compiling entry function '\w*?\d+cov_kernel\w*?I([fd])Li(\d+)ELi(n?\d+)E", line)
+
+    def readable(symbol: str):
+        m = re.search(r"\d+cov_kernel\w*?I([fd])Li(\d+)ELi(n?\d+)E", symbol)
         if m:
-            entry = f"cov_kernel<{dtypes[m.group(1)]},{methods[m.group(2)]},{maps[m.group(3)]}>"
-            spill = 0
-            continue
-        m = re.search(r"Compiling entry function '\w*?\d+(panel_strip_f64_kernel|panel_strip_tf32x3_kernel|"
-                      r"panel_strip_ws_kernel)I(\w*?)EEv", line)
+            return f"cov_kernel<{dtypes[m.group(1)]},{methods[m.group(2)]},{maps[m.group(3)]}>"
+        m = re.search(r"\d+(panel_strip_f64_kernel|panel_strip_tf32x3_ws_kernel|panel_strip_ws_kernel)"
+                      r"I(\w*?)EEv", symbol)
         if m:
             raw = m.group(2)
             parts = [dtypes[raw[0]]] if raw[0] in dtypes else []
@@ -349,11 +354,15 @@ def ptxas_table(report: str) -> dict:
                 parts.append("tma" if flags[0] == "1" else "no_tma")
             if flags[1:] == ["1"] and m.group(1) == "panel_strip_ws_kernel":
                 parts.append("serial")
-            entry = f"{m.group(1)}<{','.join(parts)}>"
-            spill = 0
-            continue
-        if re.search(r"Compiling entry function '\w*?bf16_rows_kernel", line):
-            entry, spill = "bf16_rows_kernel", 0
+            return f"{m.group(1)}<{','.join(parts)}>"
+        return "bf16_rows_kernel" if "bf16_rows_kernel" in symbol else None
+
+    table: dict = {}
+    entry, spill = None, 0
+    for line in report.splitlines():  # each entry function, its spills, its "Used N registers"
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spill = readable(m.group(1)), 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and entry:
@@ -361,8 +370,14 @@ def ptxas_table(report: str) -> dict:
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m and entry:
             table[entry] = {"registers": int(m.group(1)), "static_smem_bytes": int(m.group(2)),
-                            "spill_stores": spill}
+                            "spill_stores": spill, "serialized": []}
             entry = None
+    for line in report.splitlines():  # "(C7513) Potential Performance Loss: ... '<function>'"
+        code = re.search(r"\((C\d+)\)", line)
+        for symbol in re.findall(r"'(\w+)'", line) if code else ():
+            name = readable(symbol)
+            if name in table and code.group(1) not in table[name]["serialized"]:
+                table[name]["serialized"].append(code.group(1))
     return table
 
 
@@ -389,17 +404,18 @@ def phase_environment() -> None:
         f"spill stores (bytes) {spills}")
     log(json.dumps({"ptxas": per_kernel}))
     spilled = [k for k, v in per_kernel.items()
-               if k.startswith(("cov_kernel", "panel_strip_ws_kernel", "panel_strip_f64_kernel"))
-               and v["spill_stores"]]
+               if k.startswith(("cov_kernel", "panel_strip_")) and v["spill_stores"]]
     if spilled:
         fail(f"kernel instantiations spill: {spilled}")
-    # the ws kernel's setmaxnreg split (2 x 128 x 232 + 128 x 40, or 224 and
-    # 56 with plain loads) takes the 384 x 168 registers a block starts
-    # with; with fewer, setmaxnreg.inc would wait forever
+    # the warp-specialized kernels' setmaxnreg split (2 x 128 x 232 + 128 x
+    # 40, or 224 and 56) takes the 384 x 168 registers a block starts with;
+    # with fewer, setmaxnreg.inc would wait forever
     unsplit = {k: v["registers"] for k, v in per_kernel.items()
-               if k.startswith("panel_strip_ws_kernel") and v["registers"] != 168}
+               if k.startswith(WS_KERNELS) and v["registers"] != 168}
     if unsplit:
         fail(f"warp-specialized panel-strip instantiations do not start at 168 registers: {unsplit}")
+    log(json.dumps({"wgmma_serialized": {k: v["serialized"] for k, v in per_kernel.items()
+                                         if k.startswith(WS_KERNELS)}}))
     for line in report.splitlines():  # ptxas's own warnings, e.g. a serialized wgmma
         if "warning" in line.lower() or "performance loss" in line.lower():
             log("ptxas:", line.strip())

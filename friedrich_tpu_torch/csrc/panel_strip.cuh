@@ -29,7 +29,7 @@
 // accumulator and adds it into a float32 register accumulator on the CUDA
 // cores (a "promotion").
 //
-// float32: 3xTF32 (panel_strip_tf32x3_kernel). The float32 SIMT rate (67
+// float32: 3xTF32 (panel_strip_tf32x3_ws_kernel). The float32 SIMT rate (67
 // TFLOP/s) caps a CUDA-core loop well below cuBLAS; the tensor cores give
 // 495 TFLOP/s in TF32, which keeps 10 mantissa bits. Each operand is split
 // as a = a_hi + a_lo, a_hi = tf32(a), a_lo = tf32(a - a_hi), both rounded to
@@ -43,45 +43,65 @@
 // float32. Each 32-deep stage (96 products) is promoted. Tensor-core bound:
 // three TF32 products, 3 * 2 (cap - j0) B j0 / 495 TFLOP/s.
 //
-// Design of the 3xTF32 kernel. One block per 128 x 128 output tile, 256
-// threads: two warpgroups of 64 rows each. Both operands are row blocks of
-// the row-major factor with the contraction along a row, i.e. K-major as
-// they stand, which is the only layout TF32 wgmma takes, so they load
-// straight from L into a ring of 6 stages, each with a full mbarrier:
-// - TMA (capacity % 4 == 0): one tensor map over the strip's rows
-//   L[j0:cap, 0:j0], built on the host per launch, 128 x 32 boxes with the
-//   128-byte swizzle, issued by thread 0. The column extent is clipped to
+// Design of the 3xTF32 kernel. One block per 128 x 128 output tile, 384
+// threads: two consumer warpgroups of 64 rows each and one producer
+// warpgroup, the block of the bfloat16 kernel below. Both operands are row
+// blocks of the row-major factor with the contraction along a row, i.e.
+// K-major as they stand, which is the only layout TF32 wgmma takes.
+// - Registers: the block starts at 168 a thread (384 x 168 fill the SM's
+//   65,536); setmaxnreg gives the producer 56 and the consumers 224, room
+//   for the float32 accumulator, the fresh tensor-core one and the split A
+//   fragments (~200: at 168 they spilled, which kept an earlier design at
+//   256 threads with no producer).
+// - The ring: 4 stages of 48 KB, each A and B as 128 x 32 float32 boxes
+//   (one 128-byte row each, the 128-byte swizzle) and B's low parts, with a
+//   full, a ready and an empty mbarrier per slot. No block-wide barrier in
+//   the mainloop.
+// - The producer loads stage k + 2 into its slot once both consumers have
+//   released it, then splits stage k. TMA (capacity % 4 == 0): one thread
+//   issues both boxes through a tensor map over the strip's rows
+//   L[j0:cap, 0:j0] (a second over the panel's rows when they are their own
+//   operand), built on the host per launch. The column extent is clipped to
 //   j0, so TMA's out-of-bounds zero fill is the contraction mask (columns
 //   >= j0, which a reused factor buffer may hold, are never read), and the
-//   row extent to cap - j0 zero-fills the ragged rows.
-// - cp.async (any other capacity, whose rows are not 16-byte aligned):
-//   every thread copies its share into the same swizzled layout with zero
-//   fill and arrives on the same barrier; the multiply does not know which
-//   path fed it.
-// A slot is refilled, STAGES stages ahead, right after the named barrier
-// at which both warpgroups have retired it. No separate producer warp: the
-// register file is split over the SM's four sub-partitions (16,384 each),
-// so a ninth warp puts three warps on one of them and caps every thread at
-// 168 registers, where the two accumulators and the A fragments need ~200
-// (they spilled; asking for more registers got the launch refused).
-// Shared memory, not the tensor cores, bounds a design that splits both
-// operands in shared memory and feeds wgmma from there: the split's writes
-// and wgmma's operand reads together saturate it. So A comes from
-// registers: each thread loads its own wgmma A fragment from the raw stage
-// and splits it in registers; only B, which both warpgroups read, is split
-// in shared memory (b_hi in place, b_lo into one of two low-part buffers,
-// flat float4 passes: the split is elementwise, so the swizzle carries
-// over). Per stage: issue the stage's 12 wgmma.mma_async m64n128k8 tf32 (4
-// k-steps of 8, three products each) as one group; while it runs, prepare
-// the next stage (wait for it, split its B, load its A fragments); retire
-// the group, add it into the float32 accumulator, split the next A
-// fragments, meet the other warpgroup at a named barrier, and refill the
-// retired slot. 6 x 32 KB + 2 x 16 KB of shared memory. Epilogue: the
-// accumulator tile goes to shared memory; a rolled loop over it computes
-// each entry's features, kernel map and diagonal and identity rules, and
-// stores `map - acc` once, masking rows and columns past the strip,
-// consecutive threads on consecutive columns. j0 = 0 is the same kernel
-// with no mainloop.
+//   row extent zero-fills the ragged rows. Elsewhere (rows not 16-byte
+//   aligned) every producer thread cp.async's its share into the same
+//   layout, zero filled. All 128 then split the landed stage's B in shared
+//   memory (b_hi = tf32(b) in place, b_lo = tf32(b - b_hi) beside it, flat
+//   float4 passes, two in flight a thread: the split is elementwise, so the
+//   swizzle carries over) and arrive on its ready barrier. So B's split is
+//   off the consumers' path: they read B only through wgmma. (Three
+//   splitting warps beside a TMA warp took ~1,950 cycles a stage, longer
+//   than a stage's products, and held the consumers at the ready barrier;
+//   four take ~1,300 and run stages ahead.)
+// - The consumers. A comes from registers: each thread loads its own wgmma
+//   A fragment from the raw stage and splits it there (shared memory, not
+//   the tensor cores, bounds a design that splits A in shared memory too:
+//   the split's writes and wgmma's operand reads saturate it). Per stage a
+//   warpgroup issues its 12 wgmma.mma_async m64n128k8 tf32 (4 k-steps of 8,
+//   three products each) into a fresh accumulator as one group; while they
+//   run it waits for the next stage and loads that stage's A fragments; then
+//   it retires the group, releases the slot, adds the group into the
+//   float32 accumulator (the promotion: 96 products a run) and splits the
+//   next A.
+// - What bounds it: that promotion. A warpgroup must retire its group before
+//   it can promote and rewrite the A fragments the group reads (a second
+//   set, or a second accumulator, does not fit in 224 registers; ptxas
+//   serializes a loop that rewrites a wgmma's A registers while a group is
+//   in flight), and on the card the two warpgroups' retire-promote-issue
+//   gaps do not hide behind each other's products: shared-memory
+//   instructions (the A loads, the barrier waits) queue behind the wgmma
+//   already issued on their sub-partition. At the middle panel of 100,512 a
+//   stage takes ~2,300 cycles for ~1,540 of products; without the
+//   promotion (a wrong result) it took ~1,700. Ordering the warpgroups'
+//   issues (ping-pong), a barrier between them, and loading the next A
+//   before issuing did not shorten it (PERF.md).
+// - The epilogue: the accumulator tile goes to shared memory; a rolled loop
+//   over it computes each entry's features, kernel map and diagonal and
+//   identity rules, and stores `map - acc` once, masking rows and columns
+//   past the strip, consecutive threads on consecutive columns. j0 = 0 is
+//   the same kernel with no mainloop. The grid is 1-D, a row tile with all
+//   its column tiles, then the next.
 //
 // bfloat16 products (panel_strip_ws_kernel): the factor storage "bf16" (a
 // bfloat16 prefix, FEED_BF16) and the factor precision "bf16" (a float32
@@ -93,11 +113,12 @@
 // operands' way in, not the multiply: at 989 TFLOP/s the blocks would pull
 // ~15 TB/s of operand tiles out of L2, and the kernel's measured rate, ~370
 // TFLOP/s at the middle panels, is ~5.6 TB/s of them (PERF.md). The design:
-// - Warp specialization: 384 threads, two consumer warpgroups (64 rows of
-//   the tile each) and one producer warpgroup; setmaxnreg gives the
-//   consumers 232 registers and the producer 40 (224 and 56 where the
-//   producer does plain loads; the block must start at 168 a thread, which
-//   chip_smoke.py checks in ptxas's report and the launch checks). A ring of
+// - Warp specialization, the 3xTF32 kernel's block: 384 threads, two
+//   consumer warpgroups (64 rows of the tile each) and one producer
+//   warpgroup; setmaxnreg gives the consumers 232 registers and the
+//   producer 40 (224 and 56 where the producer does plain loads; the block
+//   must start at 168 a thread, which chip_smoke.py checks in ptxas's report
+//   and the launch checks). A ring of
 //   stages has a full and an empty mbarrier per slot; a consumer warpgroup
 //   releases a slot by arriving on its empty barrier once the wgmma group
 //   that read it has retired, and the producer refills it when both have.
@@ -262,22 +283,24 @@ __device__ __forceinline__ T covariance_entry(const T* __restrict__ xr,
 }
 
 // ---------------------------------------------------------------------------
-// float32: 3xTF32 wgmma fed by TMA or cp.async
+// The wgmma kernels' shared pieces: tiles, the warp-specialized block, barriers
 // ---------------------------------------------------------------------------
 
-namespace tc {
-constexpr int BM = 128;                         // tile rows: two warpgroups of 64
-constexpr int BN = 128;                         // tile columns: the wgmma N
-constexpr int BK = 32;                          // contraction per stage: one 128-byte row
-constexpr int STAGES = 6;                       // ring of loaded stages
-constexpr int LO_BUFS = 2;                      // low parts of B
-constexpr int THREADS = 256;                    // two warpgroups
-constexpr int TILE_BYTES = BM * BK * 4;         // one operand of one stage, 16 KB
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;     // A then B
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + LO_BUFS * TILE_BYTES + 1024;  // + alignment
-static_assert(BM == BN, "one box shape serves both operands");
-static_assert(BK * 4 == 128, "a stage row is one 128-byte swizzle row");
-}  // namespace tc
+namespace ws {
+constexpr int BM = 128;               // tile rows: two consumer warpgroups of 64
+constexpr int BN = 128;               // tile columns: the wgmma N
+constexpr int CONSUMERS = 256;        // threads 0..255 multiply, 256..383 load
+constexpr int THREADS = 384;
+constexpr int START_REGS = 168;       // a thread's registers at launch: 384 x 168 <= 65,536
+// setmaxnreg's split of the block's 384 x 168: a producer issuing TMA from
+// one thread needs few; one doing plain loads or splitting B needs more
+// (with 40 the plain loads' address arithmetic spilled)
+constexpr int TMA_PRODUCER_REGS = 40, PLAIN_PRODUCER_REGS = 56;
+// the consumers' share: 232 and 224, multiples of 8 as setmaxnreg needs
+constexpr int consumer_regs(int producer) { return (THREADS * START_REGS - 128 * producer) / 256; }
+static_assert(consumer_regs(TMA_PRODUCER_REGS) == 232 && consumer_regs(PLAIN_PRODUCER_REGS) == 224,
+              "setmaxnreg counts are multiples of 8");
+}  // namespace ws
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -313,6 +336,51 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// mbar_wait as one PTX loop, with the same trap: a C++ loop around a wait
+// is a branch that ptxas takes as divergent, and a wgmma after it would be
+// serialized.
+__device__ __forceinline__ void mbar_wait_ptx(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .s64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra LAB_DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.s64 t1, t1, t0;\n"
+      "setp.gt.s64 p, t1, 17179869184;\n"  // 2^34 cycles
+      "@p trap;\n"
+      "bra LAB_WAIT;\n"
+      "LAB_DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One arrival on `bar` if `pred` is non-zero, as a predicated instruction
+// rather than a branch.
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, int pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.s32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // TMA: the (c0, c1) box of `map` (c0 along the contraction) into `dst`.
@@ -418,15 +486,35 @@ __device__ __forceinline__ void load_a(const unsigned char* a_tile, int tid, flo
   }
 }
 
-// Splits a loaded B tile: b_hi = tf32(b) in place, b_lo = tf32(b - b_hi) at
-// the same offset of `lo`. Elementwise, so the swizzled layout carries over.
-__device__ __forceinline__ void split_b(unsigned char* tile, unsigned char* lo, int tid) {
-  float4* hi4 = reinterpret_cast<float4*>(tile);
-  float4* lo4 = reinterpret_cast<float4*>(lo);
-#pragma unroll
-  for (int i = tid; i < tc::TILE_BYTES / 16; i += tc::THREADS) {
-    const float4 v = hi4[i];
-    float4 h, l;
+// The 3xTF32 kernel's ring: each stage holds A, the strip's rows, and B, the
+// panel's rows, as TMA writes them (128 rows x 32 float32, one 128-byte row
+// each, in the 128-byte swizzle), then B's low parts once the producer has
+// split it.
+namespace tc {
+constexpr int BK = 32;                        // contraction per stage: one 128-byte row
+constexpr int TILE_BYTES = ws::BM * BK * 4;   // one operand of a stage, 16 KB
+constexpr int STAGE_BYTES = 3 * TILE_BYTES;   // A, B (b_hi once split), b_lo
+constexpr int STAGES = 4;                     // ring of stages
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment
+// The producer loads stage k + LEAD, then splits stage k: so a split never
+// waits for the consumers to release the stage before, which they are
+// still multiplying.
+constexpr int LEAD = STAGES - 2;
+static_assert(ws::BM == ws::BN, "one box shape serves both operands");
+static_assert(BK * 4 == 128, "a stage row is one 128-byte swizzle row");
+static_assert(STAGES * STAGE_BYTES >= ws::BM * (ws::BN + 1) * 4, "the epilogue's tile");
+static_assert(LEAD >= 1, "loads run ahead of the split");
+static_assert(TILE_BYTES / 16 % 256 == 0, "each producer thread splits pairs of float4");
+}  // namespace tc
+
+// Splits stage `stage`'s B tile, producer thread t of 128: b_hi = tf32(b) in
+// place, b_lo = tf32(b - b_hi) in the stage's low-part tile, two float4 at
+// a time (their loads in flight together). Elementwise, so the swizzled
+// layout carries over.
+__device__ __forceinline__ void split_b(unsigned char* stage, int t) {
+  float4* hi4 = reinterpret_cast<float4*>(stage + tc::TILE_BYTES);
+  float4* lo4 = reinterpret_cast<float4*>(stage + 2 * tc::TILE_BYTES);
+  auto split = [](const float4& v, float4& h, float4& l) {
     h.x = tf32_rna(v.x);
     h.y = tf32_rna(v.y);
     h.z = tf32_rna(v.z);
@@ -435,51 +523,47 @@ __device__ __forceinline__ void split_b(unsigned char* tile, unsigned char* lo, 
     l.y = tf32_rna(v.y - h.y);
     l.z = tf32_rna(v.z - h.z);
     l.w = tf32_rna(v.w - h.w);
+  };
+#pragma unroll 1
+  for (int i = t; i < tc::TILE_BYTES / 16; i += 256) {
+    const float4 v0 = hi4[i], v1 = hi4[i + 128];
+    float4 h, l;
+    split(v0, h, l);
     hi4[i] = h;
     lo4[i] = l;
+    split(v1, h, l);
+    hi4[i + 128] = h;
+    lo4[i + 128] = l;
   }
   // the generic writes, visible to wgmma's async-proxy reads
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// Starts the load of stage k into its ring slot: TMA from thread 0 (the
-// slot's full barrier expects the bytes; A through `amap`, B through
-// `bmap`), or cp.async from every thread (each arrives once its copies have
-// landed; A from `la`, row stride ldl, B from `lb`, row stride ldb).
-template <bool TMA>
-__device__ __forceinline__ void load_stage(unsigned char* smem, uint64_t* full_bar, int k,
-                                           int tid, const CUtensorMap* amap,
-                                           const CUtensorMap* bmap,
+// cp.async of stage k's A (from `la`, row stride ldl) and B (from `lb`, row
+// stride ldb) by producer thread `ptid` of 128 into the layout TMA writes
+// (16-byte chunk c / 4 of row r at chunk (c / 4) ^ (r % 8)), zero past the
+// rows and past kdim; the thread then arrives on `full` once they have
+// landed.
+__device__ __forceinline__ void copy_stage(unsigned char* stage, uint64_t* full,
                                            const float* __restrict__ la,
                                            const float* __restrict__ lb, int m1, int m2,
-                                           long long ldl, long long ldb, int kdim, int rbase,
-                                           int cbase) {
+                                           long long ldl, long long ldb, int kdim, int k,
+                                           int rbase, int cbase, int ptid) {
   using namespace tc;
-  const int s = k % STAGES;
-  unsigned char* stage = smem + s * STAGE_BYTES;
-  if (TMA) {
-    if (tid == 0) {
-      mbar_expect_tx(&full_bar[s], STAGE_BYTES);
-      tma_load(stage, amap, &full_bar[s], k * BK, rbase);
-      tma_load(stage + TILE_BYTES, bmap, &full_bar[s], k * BK, cbase);
-    }
-  } else {
-    // the layout TMA writes: 16-byte chunk c / 4 of row r at chunk (c / 4) ^ (r % 8)
-    const int k0 = k * BK;
-    for (int e = tid; e < 2 * BM * BK; e += THREADS) {
-      const int op = e / (BM * BK);
-      const int r = (e / BK) % BM;
-      const int c = e % BK;
-      const int row = (op ? cbase : rbase) + r;
-      const int kk = k0 + c;
-      const bool valid = row < (op ? m2 : m1) && kk < kdim;
-      const float* src = valid ? (op ? lb + (long long)row * ldb : la + (long long)row * ldl) + kk
-                               : la;
-      const int off = r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
-      cp_async4(stage + op * TILE_BYTES + off, src, valid);
-    }
-    cp_async_arrive(&full_bar[s]);
+  const int k0 = k * BK;
+  for (int e = ptid; e < 2 * ws::BM * BK; e += 128) {
+    const int op = e / (ws::BM * BK);
+    const int r = (e / BK) % ws::BM;
+    const int c = e % BK;
+    const int row = (op ? cbase : rbase) + r;
+    const int kk = k0 + c;
+    const bool valid = row < (op ? m2 : m1) && kk < kdim;
+    const float* src = valid ? (op ? lb + (long long)row * ldb : la + (long long)row * ldl) + kk
+                             : la;
+    const int off = r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
+    cp_async4(stage + op * TILE_BYTES + off, src, valid);
   }
+  cp_async_arrive(full);
 }
 
 __device__ __forceinline__ void split_a(const float (&a)[4][4], uint32_t (&hi)[4][4],
@@ -492,17 +576,6 @@ __device__ __forceinline__ void split_a(const float (&a)[4][4], uint32_t (&hi)[4
       hi[ks][i] = __float_as_uint(h);
       lo[ks][i] = __float_as_uint(tf32_rna(a[ks][i] - h));
     }
-}
-
-// Stage k ready for the multiply: waits for its load, splits its B in
-// shared memory and loads this thread's A fragments.
-__device__ __forceinline__ void prepare_stage(unsigned char* smem, uint64_t* full_bar, int k,
-                                              int tid, float (&a)[4][4]) {
-  using namespace tc;
-  unsigned char* stage = smem + (k % STAGES) * STAGE_BYTES;
-  mbar_wait(&full_bar[k % STAGES], (k / STAGES) & 1);
-  split_b(stage + TILE_BYTES, smem + STAGES * STAGE_BYTES + (k % LO_BUFS) * TILE_BYTES, tid);
-  load_a(stage, tid, a);
 }
 
 // The rolled loop of every epilogue: `tile` holds a BM x BN downdate in
@@ -543,7 +616,7 @@ __device__ __forceinline__ void store_strip(unsigned char* smem, const float (&a
                                             long long col0, long long n, float noise,
                                             int needs, int n_ops, const int* sops,
                                             const int* soffs, const float* sprm) {
-  using namespace tc;
+  using namespace ws;
   float* tile = reinterpret_cast<float*>(smem);  // BM x (BN + 1)
   {
     const int g = tid / 128, w = (tid % 128) / 32, l = tid % 32;
@@ -555,9 +628,9 @@ __device__ __forceinline__ void store_strip(unsigned char* smem, const float (&a
     }
   }
   asm volatile("bar.sync 1, 256;" ::: "memory");
-  strip_from_tile<float, METHOD, BM, BN, THREADS>(tile, tid, rbase, cbase, x1, x2, out, m1, m2, d,
-                                                  row0, col0, n, noise, needs, n_ops, sops, soffs,
-                                                  sprm);
+  strip_from_tile<float, METHOD, BM, BN, CONSUMERS>(tile, tid, rbase, cbase, x1, x2, out, m1, m2,
+                                                    d, row0, col0, n, noise, needs, n_ops, sops,
+                                                    soffs, sprm);
 }
 
 // `amap` covers the strip's rows (A: m1 rows, row stride ldl, the first
@@ -567,27 +640,34 @@ __device__ __forceinline__ void store_strip(unsigned char* smem, const float (&a
 // are one; a rank of the distributed factorization below the panel passes
 // the panel's rows as their own operand.
 template <int METHOD, bool TMA>
-__global__ void __launch_bounds__(tc::THREADS, 1)
-    panel_strip_tf32x3_kernel(const __grid_constant__ CUtensorMap amap,
-                              const __grid_constant__ CUtensorMap bmap,
-                              const float* __restrict__ x1, const float* __restrict__ x2,
-                              const float* __restrict__ la, const float* __restrict__ lb,
-                              float* __restrict__ out, int m1, int m2, int d, long long ldl,
-                              long long ldb, int kdim, long long row0, long long col0,
-                              long long n, float noise, int needs,
-                              const __grid_constant__ CovProgram prog) {
+__global__ void __launch_bounds__(ws::THREADS, 1)
+    panel_strip_tf32x3_ws_kernel(const __grid_constant__ CUtensorMap amap,
+                                 const __grid_constant__ CUtensorMap bmap,
+                                 const float* __restrict__ x1, const float* __restrict__ x2,
+                                 const float* __restrict__ la, const float* __restrict__ lb,
+                                 float* __restrict__ out, int m1, int m2, int d, long long ldl,
+                                 long long ldb, int kdim, long long row0, long long col0,
+                                 long long n, float noise, int needs,
+                                 const __grid_constant__ CovProgram prog) {
   using namespace tc;
+  constexpr int PRODUCER = ws::PLAIN_PRODUCER_REGS;  // B's split needs more than TMA's issue
+  constexpr int CONSUMER = (ws::THREADS * ws::START_REGS - 128 * PRODUCER) / 256;
   extern __shared__ unsigned char smem_dyn[];
-  __shared__ __align__(8) uint64_t full_bar[STAGES];
+  __shared__ __align__(8) uint64_t full_bar[STAGES];   // the stage has landed
+  __shared__ __align__(8) uint64_t ready_bar[STAGES];  // its B is split
+  __shared__ __align__(8) uint64_t empty_bar[STAGES];  // both consumers are done with it
   __shared__ float sprm[MAX_PARAMS];
   __shared__ int sops[MAX_OPS];
   __shared__ int soffs[MAX_OPS];
 
-  // stages and low-part buffers on 1024-byte boundaries (the swizzle atom)
+  // stages on 1024-byte boundaries (the swizzle atom)
   unsigned char* smem = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
   const int tid = threadIdx.x;
-  const int rbase = blockIdx.y * BM;
-  const int cbase = blockIdx.x * BN;
+  // A 1-D grid in launch order: a row tile with all its column tiles, then
+  // the next, so that the blocks in flight share their A rows in L2.
+  const int col_tiles = (m2 + ws::BN - 1) / ws::BN;
+  const int rbase = static_cast<int>(blockIdx.x / col_tiles) * ws::BM;
+  const int cbase = static_cast<int>(blockIdx.x % col_tiles) * ws::BN;
   const int num_k = (kdim + BK - 1) / BK;
 
   if (tid < MAX_PARAMS) sprm[tid] = static_cast<float>(prog.params[tid]);
@@ -596,21 +676,59 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     soffs[tid] = prog.offs[tid];
   }
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(&full_bar[s], TMA ? 1 : THREADS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], TMA ? 1 : 128);
+      mbar_init(&ready_bar[s], 128);
+      mbar_init(&empty_bar[s], 2);  // each consumer warpgroup
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  for (int k = 0; k < STAGES && k < num_k; ++k) {
-    load_stage<TMA>(smem, full_bar, k, tid, &amap, &bmap, la, lb, m1, m2, ldl, ldb, kdim, rbase,
-                    cbase);
+
+  // the warpgroup, warp-uniform to the compiler (a role branch it took as
+  // divergent would serialize every wgmma behind it)
+  const int g = __shfl_sync(0xffffffff, tid / 128, 0);
+  if (g == ws::CONSUMERS / 128) {
+    // ---- producer warpgroup: loads the ring and splits each stage's B
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER));
+    const int ptid = tid - ws::CONSUMERS;
+    // stage k into its slot once both consumers have released it: TMA from
+    // one thread, or cp.async from every thread
+    auto load = [&](int k) {
+      const int s = k % STAGES;
+      unsigned char* stage = smem + s * STAGE_BYTES;
+      if (TMA) {
+        if (ptid == 0) {
+          if (k >= STAGES) mbar_wait(&empty_bar[s], ((k / STAGES) - 1) & 1);
+          mbar_expect_tx(&full_bar[s], 2 * TILE_BYTES);
+          tma_load(stage, &amap, &full_bar[s], k * BK, rbase);
+          tma_load(stage + TILE_BYTES, &bmap, &full_bar[s], k * BK, cbase);
+        }
+      } else {
+        if (k >= STAGES) mbar_wait(&empty_bar[s], ((k / STAGES) - 1) & 1);
+        copy_stage(stage, &full_bar[s], la, lb, m1, m2, ldl, ldb, kdim, k, rbase, cbase, ptid);
+      }
+    };
+    for (int k = 0; k < LEAD && k < num_k; ++k) load(k);
+    for (int k = 0; k < num_k; ++k) {
+      if (k + LEAD < num_k) load(k + LEAD);
+      const int s = k % STAGES;
+      mbar_wait(&full_bar[s], (k / STAGES) & 1);
+      split_b(smem + s * STAGE_BYTES, ptid);
+      mbar_arrive(&ready_bar[s]);
+    }
+    return;
   }
 
-  // Each stage's 32-deep product goes into a fresh tensor-core
-  // accumulator `part` (the first wgmma of the stage does not
+  // ---- consumer warpgroups. Each stage's 32-deep product goes into a fresh
+  // tensor-core accumulator `part` (the stage's first wgmma does not
   // accumulate), which is then added into `acc` on the CUDA cores in
   // float32: the tensor cores' own accumulation keeps fewer bits than
-  // float32 (errors grew as j0^2 when one accumulator ran through the
-  // whole contraction), so it only ever sums 96 products.
+  // float32 (errors grew as j0^2 when one accumulator ran through the whole
+  // contraction), so it only ever sums 96 products. Nothing around a wgmma
+  // branches on the thread, so ptxas keeps the group asynchronous.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER));
+  const int wg_tid = tid % 128;
   float acc[64], part[64];
 #pragma unroll
   for (int j = 0; j < 64; ++j) {
@@ -619,20 +737,29 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
   }
   uint32_t a_hi[4][4], a_lo[4][4];  // this stage's A fragments, split
   float a_next[4][4];               // the next stage's, as loaded
+  // Stage k's A and split B in shared memory: its ready barrier, and its full
+  // one, which has long completed (the A that TMA or cp.async wrote is read
+  // directly).
+  auto wait_stage = [&](int k) {
+    mbar_wait_ptx(&full_bar[k % STAGES], (k / STAGES) & 1);
+    mbar_wait_ptx(&ready_bar[k % STAGES], (k / STAGES) & 1);
+  };
   if (num_k > 0) {
-    prepare_stage(smem, full_bar, 0, tid, a_next);
-    split_a(a_next, a_hi, a_lo);
-    asm volatile("bar.sync 1, 256;" ::: "memory");
+    wait_stage(0);
+    load_a(smem, tid, a_next);
   }
-  for (int kb = 0; kb < num_k; ++kb) {
-    const int s = kb % STAGES;
-    unsigned char* b_tile = smem + s * STAGE_BYTES + TILE_BYTES;
-    unsigned char* b_lo_tile = smem + STAGES * STAGE_BYTES + (kb % LO_BUFS) * TILE_BYTES;
+  for (int k = 0; k < num_k; ++k) {
+    const int s = k % STAGES;
+    const unsigned char* b_tile = smem + s * STAGE_BYTES + TILE_BYTES;
+    split_a(a_next, a_hi, a_lo);
     fence_acc(part);
+    fence_frag(a_hi);
+    fence_frag(a_lo);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
     for (int ks = 0; ks < BK / 8; ++ks) {
-      const uint64_t b_hi = smem_desc(b_tile + ks * 32), b_lo = smem_desc(b_lo_tile + ks * 32);
+      const uint64_t b_hi = smem_desc(b_tile + ks * 32);
+      const uint64_t b_lo = smem_desc(b_tile + TILE_BYTES + ks * 32);
       wgmma_tf32(part, a_lo[ks], b_hi, ks > 0);  // small terms first
       wgmma_tf32(part, a_hi[ks], b_lo, 1);
       wgmma_tf32(part, a_hi[ks], b_hi, 1);
@@ -641,27 +768,23 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     fence_acc(part);
     fence_frag(a_hi);
     fence_frag(a_lo);
-    // prepare the next stage while this one multiplies; its B low parts go
-    // to the buffer the previous stage (retired in both warpgroups) used
-    if (kb + 1 < num_k) prepare_stage(smem, full_bar, kb + 1, tid, a_next);
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    // the next stage's A fragments while this one multiplies
+    if (k + 1 < num_k) {
+      wait_stage(k + 1);
+      load_a(smem + ((k + 1) % STAGES) * STAGE_BYTES, tid, a_next);
+    }
+    wgmma_wait<0>();
     fence_acc(part);
     fence_frag(a_hi);
     fence_frag(a_lo);
+    mbar_arrive_if(&empty_bar[s], wg_tid == 0);
 #pragma unroll
     for (int j = 0; j < 64; ++j) acc[j] += part[j];
-    if (kb + 1 < num_k) split_a(a_next, a_hi, a_lo);  // the retired group no longer reads them
-    // the next stage is split in both warpgroups, and this one retired:
-    // its slot takes the stage STAGES ahead
-    asm volatile("bar.sync 1, 256;" ::: "memory");
-    if (kb + STAGES < num_k) {
-      load_stage<TMA>(smem, full_bar, kb + STAGES, tid, &amap, &bmap, la, lb, m1, m2, ldl, ldb,
-                      kdim, rbase, cbase);
-    }
   }
-
-  store_strip<METHOD>(smem, acc, tid, rbase, cbase, x1, x2, out, m1, m2, d, row0, col0, n,
-                      noise, needs, prog.n_ops, sops, soffs, sprm);
+  // both warpgroups are done with the ring before the epilogue reuses it
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+  store_strip<METHOD>(smem, acc, tid, rbase, cbase, x1, x2, out, m1, m2, d, row0, col0, n, noise,
+                      needs, prog.n_ops, sops, soffs, sprm);
 }
 
 // ---------------------------------------------------------------------------
@@ -669,21 +792,8 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
 // ---------------------------------------------------------------------------
 
 namespace ws {
-constexpr int BM = 128;               // tile rows: two consumer warpgroups of 64
-constexpr int BN = 128;               // tile columns: the wgmma N
 constexpr int BK = 64;                // bfloat16 per stage row: one 128-byte swizzle row
-constexpr int CONSUMERS = 256;        // threads 0..255 multiply, 256..383 load
-constexpr int THREADS = 384;
 constexpr int B_BYTES = BN * BK * 2;  // the bfloat16 B tile of a stage
-constexpr int START_REGS = 168;       // a thread's registers at launch: 384 x 168 <= 65,536
-// setmaxnreg's split of the block's 384 x 168: a producer issuing TMA from
-// one thread needs few; one doing plain loads needs more (with 40 its
-// address arithmetic spilled)
-constexpr int TMA_PRODUCER_REGS = 40, PLAIN_PRODUCER_REGS = 56;
-// the consumers' share: 232 and 224, multiples of 8 as setmaxnreg needs
-constexpr int consumer_regs(int producer) { return (THREADS * START_REGS - 128 * producer) / 256; }
-static_assert(consumer_regs(TMA_PRODUCER_REGS) == 232 && consumer_regs(PLAIN_PRODUCER_REGS) == 224,
-              "setmaxnreg counts are multiples of 8");
 // Stages (64 products each) per fresh tensor-core accumulator: the longest
 // interval whose downdate error against float64 stayed within twice that of
 // the previous design's 128 products on the card (PERF.md).
@@ -696,7 +806,6 @@ constexpr int RING_BYTES = 160 * 1024;
 // serialized consumer loop runs: faster from capacity 130,512 up, slower at
 // 120,512 and below and on explicit prefixes, on the card (PERF.md).
 constexpr long long SERIAL_MIN_LD = 125000;
-static_assert(BM == tc::BM && BN == tc::BN, "the epilogue is the 3xTF32 kernel's");
 static_assert(BK * 2 == 128, "a bfloat16 stage row is one 128-byte swizzle row");
 }  // namespace ws
 
@@ -714,51 +823,6 @@ struct FeedShape {
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment
   static_assert(STAGES * STAGE_BYTES >= ws::BM * (ws::BN + 1) * 4, "the epilogue's tile");
 };
-
-// mbar_wait as one PTX loop, with the same trap: a C++ loop around a wait
-// is a branch that ptxas takes as divergent, and a wgmma after it would be
-// serialized.
-__device__ __forceinline__ void mbar_wait_ptx(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      ".reg .s64 t0, t1;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra LAB_DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.s64 t1, t1, t0;\n"
-      "setp.gt.s64 p, t1, 17179869184;\n"  // 2^34 cycles
-      "@p trap;\n"
-      "bra LAB_WAIT;\n"
-      "LAB_DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One arrival on `bar` if `pred` is non-zero, as a predicated instruction
-// rather than a branch.
-__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, int pred) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.s32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(pred)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
 
 // d = A (64 x 16, bf16) . B (128 x 16, bf16)^T (+ d if `accumulate`), both
 // K-major in shared memory.
@@ -1392,19 +1456,39 @@ inline bool operands_ok(const void* la, const void* lb, long long ldl, long long
   return ldb >= kdim && ldl >= kdim;
 }
 
+// Readies a warp-specialized kernel for launch with `smem` bytes of dynamic
+// shared memory. setmaxnreg's split takes all the registers a block starts
+// with: with fewer, setmaxnreg.inc would wait forever, so refuse the launch
+// instead.
+template <typename Kernel>
+cudaError_t ready_ws_launch(Kernel kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return attr.numRegs < ws::START_REGS ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// One block per 128 x 128 output tile, or -1 past a 1-D grid.
+inline long long ws_tiles(int m1, int m2) {
+  const long long tiles = (long long)((m1 + ws::BM - 1) / ws::BM) * ((m2 + ws::BN - 1) / ws::BN);
+  return tiles > 0x7fffffffLL ? -1 : tiles;
+}
+
 template <int METHOD, bool TMA>
-cudaError_t launch_tf32x3_as(const CUtensorMap& amap, const CUtensorMap& bmap, const float* x1,
+cudaError_t launch_tf32x3_ws_as(const CUtensorMap& amap, const CUtensorMap& bmap, const float* x1,
                              const float* x2, const float* la, const float* lb, float* out,
                              int m1, int m2, int d, long long ldl, long long ldb, int kdim,
                              long long row0, long long col0, long long n, float noise, int needs,
                              const CovProgram& prog, cudaStream_t s) {
-  const dim3 grid((m2 + tc::BN - 1) / tc::BN, (m1 + tc::BM - 1) / tc::BM);
-  auto kernel = panel_strip_tf32x3_kernel<METHOD, TMA>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
+  auto kernel = panel_strip_tf32x3_ws_kernel<METHOD, TMA>;
+  const cudaError_t err = ready_ws_launch(kernel, tc::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, tc::THREADS, tc::SMEM_BYTES, s>>>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl,
-                                                   ldb, kdim, row0, col0, n, noise, needs, prog);
+  const long long tiles = ws_tiles(m1, m2);
+  if (tiles < 0) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(tiles), ws::THREADS, tc::SMEM_BYTES, s>>>(
+      amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb, kdim, row0, col0, n, noise, needs, prog);
   return cudaGetLastError();
 }
 
@@ -1417,13 +1501,12 @@ inline int launch_tf32x3(const float* x1, const float* x2, const float* la, cons
                          int kdim, long long row0, long long col0, long long n, double noise,
                          int method, int needs, const CovProgram& prog, cudaStream_t s) {
   if (!operands_ok(la, lb, ldl, ldb, m1, m2, kdim)) return static_cast<int>(cudaErrorInvalidValue);
-  if ((m1 + tc::BM - 1) / tc::BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap amap, bmap;
   std::memset(&amap, 0, sizeof(amap));
   std::memset(&bmap, 0, sizeof(bmap));
   const bool tma = tma_aligned(la, ldl, 4) && tma_aligned(lb, ldb, 4);
   if (tma && kdim > 0) {
-    if (!encode_map(&amap, la, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ldl, kdim, m1, tc::BK, tc::BM)) {
+    if (!encode_map(&amap, la, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ldl, kdim, m1, tc::BK, ws::BM)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     // one operand: the same map serves B (its rows past m2 only reach
@@ -1431,16 +1514,16 @@ inline int launch_tf32x3(const float* x1, const float* x2, const float* la, cons
     if (lb == la) {
       bmap = amap;
     } else if (!encode_map(&bmap, lb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ldb, kdim, m2, tc::BK,
-                           tc::BN)) {
+                           ws::BN)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   const float nz = static_cast<float>(noise);
-#define FRIEDRICH_TF32X3(M)                                                                    \
-  (tma ? launch_tf32x3_as<M, true>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb, kdim, \
-                                   row0, col0, n, nz, needs, prog, s)                          \
-       : launch_tf32x3_as<M, false>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb, kdim, \
-                                    row0, col0, n, nz, needs, prog, s))
+#define FRIEDRICH_TF32X3(M)                                                                   \
+  (tma ? launch_tf32x3_ws_as<M, true>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb,    \
+                                      kdim, row0, col0, n, nz, needs, prog, s)                 \
+       : launch_tf32x3_ws_as<M, false>(amap, bmap, x1, x2, la, lb, out, m1, m2, d, ldl, ldb,   \
+                                       kdim, row0, col0, n, nz, needs, prog, s))
   cudaError_t err;
   switch (method) {
     case GRAM: err = FRIEDRICH_TF32X3(GRAM); break;
@@ -1460,16 +1543,10 @@ cudaError_t launch_ws_as(const CUtensorMap& amap, const CUtensorMap& bmap, const
                          const CovProgram& prog, cudaStream_t s) {
   auto kernel = panel_strip_ws_kernel<FEED, METHOD, TMA, SERIAL>;
   constexpr int smem = FeedShape<TMA ? FEED : FEED_BF16>::SMEM_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = ready_ws_launch(kernel, smem);
   if (err != cudaSuccess) return err;
-  // setmaxnreg's split takes all the registers a block starts with: with
-  // fewer, setmaxnreg.inc would wait forever, so refuse the launch instead
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  if (attr.numRegs < ws::START_REGS) return cudaErrorInvalidConfiguration;
-  const long long tiles = (long long)((m1 + ws::BM - 1) / ws::BM) * ((m2 + ws::BN - 1) / ws::BN);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long tiles = ws_tiles(m1, m2);
+  if (tiles < 0) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(tiles), ws::THREADS, smem, s>>>(
       amap, bmap, x1, x2, la, lb, ldb, out, m1, m2, d, ldl, kdim, row0, col0, n, noise, needs, prog);
   return cudaGetLastError();

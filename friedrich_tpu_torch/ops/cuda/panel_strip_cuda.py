@@ -14,8 +14,11 @@ by the tensor cores' rate and by how fast their operands reach them. Its
 instantiations:
 
 - ``"tf32x3"``: a float32 prefix, three TF32 products of split operands on
-  the tensor cores (``wgmma`` fed by TMA, or by ``cp.async`` where the row
-  stride is not a multiple of 4);
+  the tensor cores (``panel_strip_tf32x3_ws_kernel``: a producer warpgroup
+  loads a ring of stages by TMA, or by ``cp.async`` where the row stride is
+  not a multiple of 4, and splits each stage's B in shared memory; two
+  consumer warpgroups split their A in registers and run ``wgmma``, each
+  32-deep stage in a fresh tensor-core accumulator promoted into float32);
 - ``"one_pass"``: a float32 prefix under the factor precision ``"bf16"``:
   both operands rounded to bfloat16, one bf16 product;
 - ``"bf16"``: a bfloat16 prefix (the factor storage ``"bf16"``), one bf16
@@ -24,12 +27,12 @@ instantiations:
   by TMA, or by ``cp.async`` where the row stride is odd), each product a
   float64 FMA and the sums float64.
 
-``"one_pass"`` and ``"bf16"`` share one kernel (``panel_strip_ws_kernel``):
-a producer warpgroup keeps TMA loads in flight on a ring of stages with a
-full and an empty barrier per slot (plain loads where TMA cannot take the
-row stride), and two consumer warpgroups run bf16 ``wgmma`` with one group
-in flight and promote their tensor-core sums into float32 registers every
-512 products. What bounds it is the L2 traffic of its 128 x 128 tiles
+``"one_pass"`` and ``"bf16"`` share one kernel (``panel_strip_ws_kernel``,
+the block of ``"tf32x3"``'s): a producer warpgroup keeps TMA loads in
+flight on a ring of stages with a full and an empty barrier per slot
+(plain loads where TMA cannot take the row stride), and two consumer
+warpgroups run bf16 ``wgmma`` with one group in flight and promote their
+tensor-core sums into float32 registers every 512 products. What bounds it is the L2 traffic of its 128 x 128 tiles
 (PERF.md). The single pass converts its float32 A fragments in registers
 and rounds the panel's own rows to bfloat16 once per launch into a scratch
 buffer this wrapper allocates (B x j0 bfloat16). Each product is exact in

@@ -135,6 +135,43 @@ def test_chip_smokes_idle_share_counts_overlapping_streams_once():
     assert chip_smoke.device_ops(prof) == [] and chip_smoke.busy_s([]) == 0
 
 
+def test_chip_smokes_ptxas_table_names_instantiations_and_their_serialization():
+    """Phase 1's table of the ``-Xptxas -v`` report: each panel-strip
+    instantiation by its template arguments with its registers and spills,
+    and the codes of ptxas's notes that serialized its wgmma (empty where
+    none names it)."""
+    import chip_smoke
+
+    tf32x3 = ("_ZN50_GLOBAL__N__0c6b1d2e_14_panel_strip_cu_6a7f3e2128panel_strip_tf32x3_ws_kernel"
+              "ILi2ELb0EEEv14CUtensorMap_stS1_PKfS3_S3_S3_Pfiiixxixxxfi10CovProgram")
+    one_pass = ("_ZN53_GLOBAL__N__be6dcd88_20_panel_strip_1pass_cu_2029f0fb21panel_strip_ws_kernel"
+                "ILi1ELi0ELb1ELb0EEEv14CUtensorMap_stS1_PKfS3_PKvPKtxPfiiixixxxfi10CovProgram")
+    serial = ("_ZN52_GLOBAL__N__efbba4b3_19_panel_strip_bf16_cu_2dc7789021panel_strip_ws_kernel"
+              "ILi0ELi1ELb1ELb1EEEv14CUtensorMap_stS1_PKfS3_PKvPKtxPfiiixixxxfi10CovProgram")
+    report = "\n".join(
+        line for symbol, regs, spill in ((tf32x3, 168, 0), (one_pass, 168, 8), (serial, 168, 0))
+        for line in (f"ptxas info    : Compiling entry function '{symbol}' for 'sm_90a'",
+                     f"ptxas info    : Function properties for {symbol}",
+                     f"    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads",
+                     f"ptxas info    : Used {regs} registers, 1200 bytes smem, 1360 bytes cmem[0]")
+    ) + (f"\nptxas info    : (C7513) Potential Performance Loss: wgmma.mma_async instructions are "
+         f"serialized due to non wgmma instructions defining input registers of a wgmma between "
+         f"start and end of the pipeline stage in the function '{one_pass}'"
+         f"\nptxas info    : (C7518) Potential Performance Loss: wgmma.mma_async instructions are "
+         f"serialized due to program dependence on compiler-inserted WG.DP in divergent path in the "
+         f"function '{serial}'")
+    table = chip_smoke.ptxas_table(report)
+    assert table == {
+        "panel_strip_tf32x3_ws_kernel<direct,no_tma>":
+            {"registers": 168, "static_smem_bytes": 1200, "spill_stores": 0, "serialized": []},
+        "panel_strip_ws_kernel<f32,gram,tma>":
+            {"registers": 168, "static_smem_bytes": 1200, "spill_stores": 8, "serialized": ["C7513"]},
+        "panel_strip_ws_kernel<bf16,gram_bf16,tma,serial>":
+            {"registers": 168, "static_smem_bytes": 1200, "spill_stores": 0, "serialized": ["C7518"]},
+    }
+    assert all(name.startswith(chip_smoke.WS_KERNELS) for name in table)
+
+
 def test_debugging_utils():
     with debugging.debug_nans(False):
         pass
