@@ -4,7 +4,10 @@ false), and ``gpbench.control --fault <name>`` plants one under runs on the
 card at a cell's own size, to read the upper end of a limit.
 
 Each fault takes an object with ``setattr(target, name, value)``: pytest's
-``monkeypatch``, or ``Patch`` for a process that ends with its runs.
+``monkeypatch``, or ``Patch`` for a process that ends with its runs. A
+loop of ``gpbench/flows/`` brings its own faults as that file's ``FAULTS``
+(a name to such a function); :func:`plant` finds a fault by name in either.
+In a cell on several cards a fault is planted on every rank.
 """
 
 from __future__ import annotations
@@ -95,3 +98,22 @@ FAULTS = {
     "gp50k-bo": [append_unchanged, half_the_batch_appended, wrong_y_appended, answer_altered],
     "gp100k-serve": [half_the_rows_answered, answer_altered],
 }
+
+#: Every fault of this module, by name.
+BY_NAME = {f.__name__: f for fs in FAULTS.values() for f in fs}
+
+
+def plant(name: str, cell, patch) -> None:
+    """Plants the fault ``name``: one of this module's, or of the ``FAULTS``
+    of the flow file that ``cell``'s mix names."""
+    fault = BY_NAME.get(name)
+    if fault is None:
+        from .loops import LOOPS, flow_module
+
+        kind = cell.traffic["loop"]
+        flows = {} if kind in LOOPS else getattr(flow_module(kind, cell.root), "FAULTS", {})
+        fault = flows.get(name)
+        if fault is None:
+            raise ValueError(f"no fault {name!r} in gpbench/faults.py or the {kind!r} loop's "
+                             "FAULTS")
+    fault(patch)

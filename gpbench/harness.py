@@ -7,11 +7,18 @@ or cell is a file of its own, found by the name ``BENCHMARK.json`` gives it:
 
 - ``gpbench/configs/<config>.json``: the sizes and the builder's settings;
 - ``gpbench/traffic/<mix>.json``: the mix's parameters, read by the loop
-  its ``"loop"`` names (``gpbench/loops.py``);
+  its ``"loop"`` names: one built into ``gpbench/loops.py``, or the
+  ``LOOP`` of ``gpbench/flows/<loop>.py``;
 - ``gpbench/metrics/<metric>.py``: a reader, ``read(run)`` returning a number
   or None, with an optional ``prepare(run)`` called before the window;
 - ``gpbench/limits/<cell>.json``: the limits of the numbers compared; a cell
   without them does not run.
+
+A cell on W > 1 cards runs as W ranks, one process on each card
+(``gpbench/world.py``), each calling :func:`execute`: every rank sets up,
+runs the window and releases the program's state alike; the ranks' reports
+are gathered to rank 0, which reads the metrics and returns the result. A
+cell on one card runs in the one process, with no process group.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 import gc
 import importlib.util
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -30,6 +38,8 @@ from . import check, trace as tracing
 PACKAGE = Path(__file__).resolve().parent
 ROOT = PACKAGE.parent
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "friedrich_tpu")
+#: A name of the manifest, and of a file found by it.
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 
 
 class CellError(RuntimeError):
@@ -52,14 +62,20 @@ def metric_applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def load_module(path: Path, kind: str):
+    """The module of the file ``path``, loaded under a name of its own."""
+    name = f"gpbench_{kind}_{path.stem.replace('.', '_').replace('-', '_')}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def load_metric_module(name: str, root: Path = ROOT):
     path = root / "gpbench" / "metrics" / f"{name}.py"
     if not path.exists():
         raise CellError(f"per-layer metric {name!r} has no reader {path}")
-    spec = importlib.util.spec_from_file_location(f"gpbench_metric_{name.replace('.', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return load_module(path, "metric")
 
 
 class Cell:
@@ -89,14 +105,20 @@ class Cell:
 
 
 class Run:
-    """State of one run, shared by the loop and the per-layer readers."""
+    """State of one run, shared by the loop and the per-layer readers. In a
+    cell on W cards each rank has its own: ``rank`` of ``world``, on its
+    ``device``."""
 
-    def __init__(self, cell: Cell, seed: int, traced: bool, device: str):
+    def __init__(self, cell: Cell, seed: int, traced: bool, device: str, rank: int = 0,
+                 world: int = 1):
+        self.root = cell.root
         self.config = cell.config
         self.traffic = cell.traffic
         self.seed = int(seed)
         self.traced = traced
         self.device = torch.device(device)
+        self.rank = int(rank)
+        self.world = int(world)
         self.dtype = {"float32": torch.float32, "float64": torch.float64}[cell.config["dtype"]]
         #: Seconds of the benchmark's own clocks around calls into a layer.
         self.spans: dict = {}
@@ -107,7 +129,12 @@ class Run:
         self.counters_after: dict = {}
         #: What the per-layer readers recorded themselves (``prepare``).
         self.records: dict = {}
+        #: This rank's trace; on rank 0 after the window, every rank's
+        #: (``traces``) and every rank's report (``rank_reports``: its peak,
+        #: counters, records, spans and trace), in rank order.
         self.trace: tracing.Trace | None = None
+        self.traces: list = []
+        self.rank_reports: list = []
         self.window_s = 0.0
         self.steps: list = []  # (live n, seconds) of each step of the window
 
@@ -117,6 +144,30 @@ class Run:
     def sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def barrier(self) -> None:
+        """Every rank waits for the others; nothing on one card."""
+        if self.world > 1:
+            torch.distributed.barrier()
+
+    def agree(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank: in a multi-rank loop, rank 0
+        decides (whether the window goes on) and the others follow."""
+        if self.world == 1:
+            return bool(flag)
+        box = torch.tensor([int(bool(flag))], device=self.device)
+        torch.distributed.broadcast(box, src=0)
+        return bool(box.item())
+
+
+def gather(obj, rank: int, world: int) -> list | None:
+    """Every rank's ``obj`` on rank 0, in rank order (None on the others);
+    ``[obj]`` on one card, with no process group."""
+    if world == 1:
+        return [obj]
+    out = [None] * world if rank == 0 else None
+    torch.distributed.gather_object(obj, out, dst=0)
+    return out
 
 
 def program_counters(loop) -> dict:
@@ -129,16 +180,25 @@ def program_counters(loop) -> dict:
     return out
 
 
+def peak_bytes(device: torch.device) -> int:
+    """The card's peak of allocated memory since its reset (none on the CPU)."""
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
 def forbidden_modules() -> list:
     tops = {name.split(".", 1)[0] for name in list(sys.modules)}
     return sorted(tops & set(FORBIDDEN_MODULES))
 
 
-def device_info(device: torch.device, peak_bytes: int) -> dict:
-    if device.type == "cuda":
-        return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": 1,
-                "memory_peak_bytes": int(peak_bytes)}
-    return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": int(peak_bytes)}
+def device_info(device: torch.device, peaks: list) -> dict:
+    """The result's ``device``: ``count`` cards, the fullest card's peak,
+    and on more than one card each card's under ``cards``."""
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    info = {"platform": "gpu" if device.type == "cuda" else "cpu", "kind": kind,
+            "count": len(peaks), "memory_peak_bytes": int(max(peaks))}
+    if len(peaks) > 1:
+        info["cards"] = [{"rank": r, "memory_peak_bytes": int(p)} for r, p in enumerate(peaks)]
+    return info
 
 
 def make_profiler(activities):
@@ -151,14 +211,21 @@ def make_profiler(activities):
 
 
 def execute(cell: Cell, seed: int, seconds: float, traced: bool, device: str,
-            started: float, log=print, readings: bool = False, control: bool = False) -> dict:
+            started: float, log=print, readings: bool = False, control: bool = False,
+            rank: int = 0, world: int = 1) -> dict | None:
     """One run of ``cell``: returns the result object (without printing).
     ``started`` is the host clock when the process began its set-up.
     ``readings`` adds every reading of the program's answers; ``control``
-    adds those and the control's (``check.control_readings``)."""
+    adds those and the control's (``check.control_readings``).
+
+    On W > 1 ranks every rank calls this, in a process group that exists,
+    with its ``rank`` and its card's ``device``; rank 0 returns the result,
+    the others None. Each rank traces its own card; the peak is the fullest
+    card's, ``busy_s`` and ``window_s`` the cards' means, the breakdown
+    taken over every card."""
     from .loops import make_loop
 
-    run = Run(cell, seed, traced, device)
+    run = Run(cell, seed, traced, device, rank, world)
     loop = make_loop(run)
     loop.setup()
     run.sync()
@@ -171,6 +238,7 @@ def execute(cell: Cell, seed: int, seconds: float, traced: bool, device: str,
     if run.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(run.device)
     run.counters_before = program_counters(loop)
+    run.barrier()
     setup_s = time.perf_counter() - started
     profiler = None
     if traced:
@@ -186,24 +254,34 @@ def execute(cell: Cell, seed: int, seconds: float, traced: bool, device: str,
         profiler.__exit__(None, None, None)
         run.trace = tracing.from_profiler(profiler)
         del profiler
+    run.barrier()
     run.counters_after = program_counters(loop)
-    peak = torch.cuda.max_memory_allocated(run.device) if run.device.type == "cuda" else 0
+    peak = peak_bytes(run.device)
     for module in readers.values():
         if hasattr(module, "finish"):
             module.finish(run)
+    report = {"rank": run.rank, "peak_bytes": peak, "trace": run.trace,
+              "counters_before": run.counters_before, "counters_after": run.counters_after,
+              "records": run.records, "spans": run.spans, "timings": run.timings,
+              "steps": run.steps, "window_s": run.window_s}
+    reports = gather(report, run.rank, run.world)
 
-    values = {"setup_s": setup_s, "peak_mem_gb": peak / 1e9, **outcome.metrics}
     metrics = {}
-    if traced:
-        for m in cell.per_layer:
-            value = readers[m["name"]].read(run)
-            if value is not None:
-                metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-    else:
-        for m in cell.end_to_end:
-            if m["name"] not in values:
-                raise CellError(f"the {cell.traffic['loop']} loop gives no {m['name']}")
-            metrics[m["name"]] = {"value": float(values[m["name"]]), "unit": m["unit"]}
+    if run.rank == 0:
+        run.rank_reports = reports
+        run.traces = [r["trace"] for r in reports]
+        peaks = [r["peak_bytes"] for r in reports]
+        values = {"setup_s": setup_s, "peak_mem_gb": max(peaks) / 1e9, **outcome.metrics}
+        if traced:
+            for m in cell.per_layer:
+                value = readers[m["name"]].read(run)
+                if value is not None:
+                    metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
+        else:
+            for m in cell.end_to_end:
+                if m["name"] not in values:
+                    raise CellError(f"the {cell.traffic['loop']} loop gives no {m['name']}")
+                metrics[m["name"]] = {"value": float(values[m["name"]]), "unit": m["unit"]}
 
     for line in outcome.notes:
         log(line)
@@ -214,17 +292,24 @@ def execute(cell: Cell, seed: int, seconds: float, traced: bool, device: str,
     if run.device.type == "cuda":
         torch.cuda.empty_cache()
     read = check.readings(outputs)
+    control_read = check.control_readings(outputs) if control else None
+    if run.rank != 0:
+        return None
     correct, checks = check.compare(read, cell.limits, failed=outcome.failed)
     result = {"correct": bool(correct), "attempted": int(outcome.attempted),
               "failed": int(outcome.failed), "metrics": metrics,
-              "device": device_info(run.device, peak)}
+              "device": device_info(run.device, peaks)}
     if traced and run.trace is not None:
-        busy = tracing.busy_ns(run.trace) / 1e9
-        result["device"].update(busy_s=busy, window_s=run.trace.window_s)
-        result["breakdown"] = tracing.breakdown(run.trace)
+        cards = [(tracing.busy_ns(t) / 1e9, t.window_s) for t in run.traces]
+        result["device"].update(busy_s=sum(b for b, _ in cards) / len(cards),
+                                window_s=sum(w for _, w in cards) / len(cards))
+        if len(cards) > 1:
+            for card, (busy, window) in zip(result["device"]["cards"], cards):
+                card.update(busy_s=busy, window_s=window)
+        result["breakdown"] = tracing.breakdown(*run.traces)
     if readings or control:
         result["readings"] = read
     if control:
-        result["control"] = check.control_readings(outputs)
+        result["control"] = control_read
     result["checks"] = checks
     return result

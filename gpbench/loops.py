@@ -1,5 +1,6 @@
 """The one general generator of work: a traffic mix's ``"loop"`` names one
-of these loops, and its other keys are the loop's parameters.
+of these loops, or a file ``gpbench/flows/<loop>.py`` whose ``LOOP`` is a
+subclass of :class:`Loop`, and its other keys are the loop's parameters.
 
 - ``train``: closed loop, ``train()`` back to back, the previous model
   dropped first, as a user retraining does. The models cycle through
@@ -21,6 +22,11 @@ of these loops, and its other keys are the loop's parameters.
 
 Every loop hands ``outputs()`` to ``gpbench/check.py``: the program's
 answers and what the reference needs to work them out again.
+
+In a cell on W > 1 cards the loop runs on every rank (``run.rank`` of
+``run.world``, on ``run.device``), set-up, window and outputs alike: rank 0
+measures and the others follow (``run.agree``). The reference then holds its
+factor in row blocks over the ranks (``gpbench/reference/sharded.py``).
 """
 
 from __future__ import annotations
@@ -33,8 +39,8 @@ import time
 import numpy as np
 import torch
 
-from . import data
-from .reference import gp as ref
+from . import data, harness
+from .reference import gp as ref, sharded
 
 QUERIES = 512
 FIT_CHECK_POINTS = 10_000
@@ -50,9 +56,22 @@ class Outcome:
 
 def make_loop(run):
     kind = run.traffic["loop"]
-    if kind not in LOOPS:
-        raise ValueError(f"unknown loop {kind!r}; known: {sorted(LOOPS)}")
-    return LOOPS[kind](run)
+    return LOOPS[kind](run) if kind in LOOPS else flow_module(kind, run.root).LOOP(run)
+
+
+def flow_module(kind: str, root=harness.ROOT):
+    """The module of ``gpbench/flows/<kind>.py``, whose ``LOOP`` is a
+    subclass of :class:`Loop` (and whose optional ``FAULTS`` maps a name to
+    a fault of ``gpbench/faults.py``'s form)."""
+    path = root / "gpbench" / "flows" / f"{kind}.py"
+    if not harness.NAME.match(kind) or not path.exists():
+        raise ValueError(f"unknown loop {kind!r}: built in are {sorted(LOOPS)}, and there is "
+                         f"no {path}")
+    module = harness.load_module(path, "flow")
+    loop = getattr(module, "LOOP", None)
+    if not (isinstance(loop, type) and issubclass(loop, Loop)):
+        raise ValueError(f"{path} defines no LOOP, a subclass of gpbench.loops.Loop")
+    return module
 
 
 def train_model(run, x, y):
@@ -118,6 +137,8 @@ class ModelOutputs:
         self.truth = None
 
     def reference(self, tf32: bool) -> dict:
+        if self.run.world > 1:
+            return self.sharded_reference(tf32)
         ls, ampl, noise = self.params
         resid = self.y - self.prior
         factor = ref.cholesky(self.x, ls, ampl, noise, tf32)
@@ -133,12 +154,26 @@ class ModelOutputs:
         _free(self.run)
         return {"mean": torch.cat(means), "var": torch.cat(variances)}
 
+    def sharded_reference(self, tf32: bool) -> dict:
+        """The same answers on every rank together, the factor in row
+        blocks over the ranks."""
+        ls, ampl, noise = self.params
+        resid = self.y - self.prior
+        factor = sharded.cholesky(self.x, ls, ampl, noise, tf32)
+        answers = [sharded.predict(factor, self.x, resid, self.prior, ls, ampl, queries, tf32, live)
+                   for live, queries in self.query_sets]
+        del factor
+        _free(self.run)
+        return {"mean": torch.cat([m for m, _ in answers]),
+                "var": torch.cat([v for _, v in answers])}
+
     def extra(self) -> dict:
         """``fit_gain``, where the loop judges a fit: the reference's log
         marginal likelihood per point at the fitted hyperparameters less that
         at the fit's start (the heuristic kernel and the configuration's
-        noise), on ``FIT_CHECK_POINTS`` rows drawn from the seed."""
-        if not self.fit_start:
+        noise), on ``FIT_CHECK_POINTS`` rows drawn from the seed, on one card
+        (rank 0's)."""
+        if not self.fit_start or self.run.rank != 0:
             return {}
         n = self.x.shape[0]
         m = min(n, FIT_CHECK_POINTS)

@@ -10,6 +10,9 @@ one JSON object; with ``--trace 1`` it carries the per-layer metrics, read
 from a ``torch.profiler`` trace of the window, instead of the end-to-end
 ones. The numbers compared, each beside its limit, are the last lines of
 standard error and the ``checks`` key of the result.
+
+A cell on W > 1 cards runs as W processes, this one rank 0 on ``cuda:0``
+and rank r on ``cuda:r`` (``gpbench/world.py``); only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -32,23 +35,38 @@ def parse(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> int:
+def main(argv=None, device: str = "cuda") -> int:
+    """The command; ``device`` other than ``"cuda"`` only from tests, which
+    skip the look for a card."""
     args = parse(argv)
     import torch
 
     from gpbench import check, harness
 
     cell = harness.Cell(args.workload)
-    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+    if device == "cuda" and (not torch.cuda.is_available()
+                             or torch.cuda.device_count() < cell.chips):
         print(f"gpbench: {cell.name} needs {cell.chips} CUDA card(s); "
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 3
-    result = harness.execute(cell, args.seed, args.seconds, bool(args.trace), "cuda", STARTED,
-                             log=lambda line: print(line, file=sys.stderr, flush=True))
-    found = harness.forbidden_modules()
-    if found:
-        print(f"gpbench: the run loaded {', '.join(found)}", file=sys.stderr)
+
+    def log(line):
+        print(line, file=sys.stderr, flush=True)
+
+    if cell.chips == 1:
+        result = harness.execute(cell, args.seed, args.seconds, bool(args.trace), device, STARTED,
+                                 log=log)
+        found = [harness.forbidden_modules()]
+    else:
+        from gpbench import world
+
+        job = world.run_job(cell, [args.seed], args.seconds, bool(args.trace), device, STARTED)
+        (_, result, found), = world.launch(job, cell.chips, log)
+    for rank, names in enumerate(found):
+        if names:
+            print(f"gpbench: rank {rank} loaded {', '.join(names)}", file=sys.stderr)
+    if any(found):
         return 4
     for line in check.check_lines(result["checks"]):
         print(line, file=sys.stderr)

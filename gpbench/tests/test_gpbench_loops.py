@@ -56,3 +56,27 @@ def test_a_large_seed_is_a_seed():
     a = data.substream(2**40 + 3, "train")
     assert a == data.substream(2**40 + 3, "train") != data.substream(2**40 + 4, "train")
     assert 0 <= a < 2**63 and data.substream(-5, "train") != data.substream(5, "train")
+
+
+def test_device_reports_the_fullest_card():
+    import torch
+
+    one = harness.device_info(torch.device("cpu"), [7])
+    assert one == {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 7}
+    four = harness.device_info(torch.device("cpu"), [3, 9, 5, 7])
+    assert four["count"] == 4 and four["memory_peak_bytes"] == 9
+    assert [c["memory_peak_bytes"] for c in four["cards"]] == [3, 9, 5, 7]
+
+
+@pytest.mark.parametrize("body,match", [(None, "unknown loop"), ("X = 1\n", "no LOOP"),
+                                        ("LOOP = dict\n", "no LOOP")])
+def test_a_loop_is_built_in_or_a_flow_file(tmp_path, body, match):
+    from gpbench.loops import flow_module
+
+    (tmp_path / "gpbench" / "flows").mkdir(parents=True)
+    if body is not None:
+        (tmp_path / "gpbench" / "flows" / "mine.py").write_text(body)
+    with pytest.raises(ValueError, match=match):
+        flow_module("mine", tmp_path)
+    with pytest.raises(ValueError, match="unknown loop"):
+        flow_module("../mine", tmp_path)

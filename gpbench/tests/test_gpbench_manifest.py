@@ -8,6 +8,7 @@ import re
 import pytest
 
 from gpbench import harness
+from gpbench.loops import LOOPS
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -92,7 +93,8 @@ def test_layer_names_agree(manifest):
 def test_every_part_is_a_file(manifest):
     for w in manifest["workloads"]:
         cell = harness.Cell(w["name"])
-        assert cell.traffic["loop"] in ("train", "bo", "serve")
+        kind = cell.traffic["loop"]
+        assert kind in LOOPS or (harness.PACKAGE / "flows" / f"{kind}.py").exists(), kind
         assert cell.limits, f"{w['name']} has no limits file"
         for m in cell.per_layer:
             assert callable(harness.load_metric_module(m["name"]).read)

@@ -57,3 +57,16 @@ def test_breakdown_keeps_ten():
     ops = [op(i * 10, i * 10 + 1, f"k{i}") for i in range(15)]
     out = trace.breakdown(trace.Trace(ops, [], [], (0, 150)))
     assert len(out["device_ops"]) == 10 and len(out["idle_gaps"]) == 1
+
+
+def test_breakdown_sums_the_cards():
+    """Operations summed by name and idle gaps by label over every card's
+    trace, each card's gaps within its own window."""
+    window = (0, 100)
+    ranges = [trace.HostRange("fit_large/adam", 0, 100, 1)]
+    a = trace.Trace([op(0, 60, "k"), op(60, 70, "c")], ranges, [], window)
+    b = trace.Trace([op(1000, 1050, "k")], [], [], (1000, 1100))
+    out = trace.breakdown(a, b)
+    assert out["device_ops"] == [["k", 110e-9], ["c", 10e-9]]
+    assert out["idle_gaps"] == [["host", 50e-9], ["fit_large/adam", 30e-9]]
+    assert trace.breakdown(a) == trace.breakdown(a, top=10)

@@ -117,16 +117,19 @@ def labels_at(ranges, times) -> list:
     return labels
 
 
-def breakdown(trace: Trace, top: int = 10) -> dict:
+def breakdown(*traces: Trace, top: int = 10) -> dict:
     """The device operations that took most time, and the idle time by
-    what the host was doing, ``top`` of each, in seconds."""
+    what the host was doing, ``top`` of each, in seconds: over every card's
+    trace, operations summed by name and idle gaps by label."""
     by_op = defaultdict(int)
-    for op in trace.ops:
-        by_op[op.name[:120]] += op.end - op.start
     by_label = defaultdict(int)
-    gaps = idle_gaps(((op.start, op.end) for op in trace.ops), trace.window)
-    for (start, end), label in zip(gaps, labels_at(trace.ranges, [(s + e) // 2 for s, e in gaps])):
-        by_label[label] += end - start
+    for trace in traces:
+        for op in trace.ops:
+            by_op[op.name[:120]] += op.end - op.start
+        gaps = idle_gaps(((op.start, op.end) for op in trace.ops), trace.window)
+        labels = labels_at(trace.ranges, [(s + e) // 2 for s, e in gaps])
+        for (start, end), label in zip(gaps, labels):
+            by_label[label] += end - start
     def ranked(d):
         return [[k, v / 1e9] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:top]]
     return {"device_ops": ranked(by_op), "idle_gaps": ranked(by_label)}
