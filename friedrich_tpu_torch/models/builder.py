@@ -16,11 +16,19 @@ including its defaults:
 requested), builds the GP, then runs ``fit_parameters``
 (``builder.rs:189-214``) — or, above the sub-fit threshold, fits the
 hyperparameters on a subset first and builds the full model once.
+
+With ``set_backend("sharded")`` (the builder only) every rank of a
+``torch.distributed`` process group calls ``train()`` alike and gets a
+``parallel.LargeScaleGP``, its factor row-sharded over the ranks
+(``parallel.make_matrix_mesh()``); the sub-fit runs whole on each rank's
+own device, and rank 0's hyperparameters are the ones every rank builds
+with.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 from typing import Iterator, Optional
 
@@ -40,6 +48,10 @@ from ..utils.profiling import scope, timed
 from .api import GaussianProcess, check_dtype
 from .gp import check_backend, resolve_backend
 from .optimizer import auto_subsample, subset_indices
+
+#: The backend of :meth:`GaussianProcessBuilder.set_backend` that trains a
+#: ``parallel.LargeScaleGP`` over the process group's ranks.
+SHARDED = "sharded"
 
 
 def _clock(device: torch.device) -> float:
@@ -146,10 +158,15 @@ class GaussianProcessBuilder:
         K panel by panel, never holding it), 'tiled' (K built into one
         buffer and factored in place, right-looking: ``ops/tiled.py``),
         'hybrid' (a streamed leading region, the rest factored in place:
-        ``ops/hybrid.py``; even capacities) or 'auto' (streamed on a card
+        ``ops/hybrid.py``; even capacities), 'auto' (streamed on a card
         where the dense backend's K and L would not fit,
-        ``models/gp.resolve_backend``)."""
-        check_backend(backend)
+        ``models/gp.resolve_backend``) or 'sharded' (a
+        ``parallel.LargeScaleGP`` over every rank of the process group,
+        trained by every rank alike; the capacity rounded up to a multiple of
+        the ranks, the panel block a width; the factor storage 'bf16' taken,
+        a factor precision not)."""
+        if backend != SHARDED:
+            check_backend(backend)
         self._backend = backend
         return self
 
@@ -221,7 +238,10 @@ class GaussianProcessBuilder:
     def set_fit_gradient(self, gradient: str) -> "GaussianProcessBuilder":
         """Gradient method for ``train()``'s fit: 'auto' (default: exact up
         to capacity 8,192, Hutchinson above), 'exact' or 'hutchinson'
-        (``models/optimizer.fit_kernel_noise``)."""
+        (``models/optimizer.fit_kernel_noise``). With the 'sharded' backend
+        a fit at full n (no sub-fit) is Hutchinson's at any size, the only
+        gradient the multi-rank layer has: 'auto' means it, 'exact' is
+        refused."""
         if gradient not in ("auto", "exact", "hutchinson"):
             raise ConfigError(f"unknown fit gradient {gradient!r}")
         self._fit_gradient = gradient
@@ -235,9 +255,11 @@ class GaussianProcessBuilder:
             method=self._method, dtype=self._dtype, device=x.device, **kw,
         )
 
-    def _new_full(self, prior, kernel, noise, x, y) -> GaussianProcess:
+    def _new_full(self, prior, kernel, noise, x, y):
         """The full-n model with every backend and factor knob of the
         builder."""
+        if self._backend == SHARDED:
+            return self._new_sharded(prior, kernel, noise, x, y)
         return self._new(
             prior, kernel, noise, x, y, capacity=self._capacity, backend=self._backend,
             panel_block=self._panel_block, storage=self._storage, precision=self._precision,
@@ -254,18 +276,23 @@ class GaussianProcessBuilder:
             _clock(device)
         self.timings[key] = log[0][1]
 
-    def train(self) -> GaussianProcess:
+    def train(self):
+        """The trained model: a ``GaussianProcess``, or with the 'sharded'
+        backend this rank's ``parallel.LargeScaleGP``."""
         with scope("builder/train"):
             return self._train()
 
-    def _train(self) -> GaussianProcess:
+    def _train(self):
         x, y = self._x, self._y
         if self._dtype is not None:
             x = x.to(self._dtype)
             y = y.to(self._dtype)
+        if self._backend == SHARDED:
+            self._sharded_mesh(x)  # before any work: the knobs and the process group
         if self._storage == "bf16":
-            if self._backend != "streamed":
-                raise ConfigError("set_factor_storage('bf16') requires set_backend('streamed')")
+            if self._backend not in ("streamed", SHARDED):
+                raise ConfigError("set_factor_storage('bf16') requires set_backend('streamed') "
+                                  "or set_backend('sharded')")
             if x.dtype != torch.float32:
                 raise ConfigError(
                     f"set_factor_storage('bf16') requires float32 inputs (got {x.dtype}; call "
@@ -279,6 +306,8 @@ class GaussianProcessBuilder:
             sub = self._resolved_subsample(x.shape[0])
             if sub is not None:
                 return self._train_subfit_first(x, y, kernel, sub)
+        if self._backend == SHARDED:
+            return self._train_sharded(x, y, kernel)
         with self._step("build", x.device):
             gp = self._new_full(self._prior, kernel, self._noise, x, y)
         if self._should_fit_prior or self._should_fit_kernel:
@@ -304,7 +333,7 @@ class GaussianProcessBuilder:
             sub = None
         return sub
 
-    def _train_subfit_first(self, x, y, kernel, sub: int) -> GaussianProcess:
+    def _train_subfit_first(self, x, y, kernel, sub: int):
         """Subsampled training flow: fit hyperparameters on the subset
         FIRST, then build the full-n model exactly ONCE at the fitted
         parameters (the reference order would pay a full-n factorization
@@ -316,7 +345,9 @@ class GaussianProcessBuilder:
         2. kernel + noise fitted on a fixed-seed random subset (and
            polished, with ``set_fit_polish(True)``);
         3. ONE full-n build at the fitted hyperparameters, with every
-           storage, precision and backend knob of the builder.
+           storage, precision and backend knob of the builder (with the
+           'sharded' backend every rank fits alike on its own device, then
+           builds at rank 0's hyperparameters).
 
         The sub-model stores its factor in the input dtype. It takes the
         builder's factor precision where ``"auto"`` streams it; with bf16
@@ -354,3 +385,76 @@ class GaussianProcessBuilder:
         with self._step("build", x.device):
             gp = self._new_full(prior, sub_gp.kernel, sub_gp.noise, x, y)
         return gp
+
+    # -- the sharded backend -------------------------------------------------------
+
+    def _sharded_mesh(self, x: torch.Tensor):
+        """The mesh of a sharded ``train()``; raises ``ConfigError`` for a
+        knob the multi-rank layer does not take, a device other than the
+        rank's, or no process group."""
+        from ..parallel import make_matrix_mesh
+
+        if (self._should_fit_kernel and self._fit_gradient == "exact"
+                and self._resolved_subsample(x.shape[0]) is None):
+            raise ConfigError("the 'sharded' backend takes no exact gradient at full n: it fits "
+                              "there by the Hutchinson gradient only")
+        if self._precision is not None:
+            raise ConfigError(f"the 'sharded' backend takes no factor precision (got "
+                              f"{self._precision!r})")
+        if isinstance(self._panel_block, (tuple, list)):
+            raise ConfigError("the 'sharded' backend takes one panel width, not a schedule")
+        mesh = make_matrix_mesh()
+        if x.device != mesh.device:
+            raise ConfigError(f"the 'sharded' backend trains on this rank's device "
+                              f"{mesh.device}, got data on {x.device}")
+        return mesh
+
+    def _train_sharded(self, x, y, kernel):
+        """No sub-fit: the prior fitted on the full data, the sharded build
+        at the starting kernel and noise, then the multi-rank Hutchinson fit
+        (``LargeScaleGP.fit_scaled``, or ``fit_generic`` for a kernel that
+        does not scale)."""
+        prior = self._prior.fit(x, y) if self._should_fit_prior else self._prior
+        with self._step("build", x.device):
+            gp = self._new_sharded(prior, kernel, self._noise, x, y)
+        if self._should_fit_kernel:
+            fit = gp.fit_scaled if gp.kernel.is_scalable else gp.fit_generic
+            with self._step("fit", x.device):
+                fit(max_iter=self._max_iter, convergence_fraction=self._convergence_fraction,
+                    max_time=self._max_time)
+            self.timings["fit_iterations"] = gp.fit_iterations
+        return gp
+
+    def _new_sharded(self, prior, kernel, noise, x, y):
+        """The ``LargeScaleGP`` at rank 0's prior, kernel and noise, with
+        the builder's capacity, epsilon, distance method, panel width and
+        factor storage."""
+        from ..parallel import LargeScaleGP
+
+        mesh = self._sharded_mesh(x)
+        prior, kernel, noise = _agreed(mesh, prior, kernel, noise, x.dtype)
+        return LargeScaleGP(mesh, kernel, prior, noise, x, y, eps=self._cholesky_epsilon,
+                            block=self._panel_block, method=self._method,
+                            capacity=self._capacity, storage=self._storage)
+
+
+def _agreed(mesh, prior, kernel, noise, dtype: torch.dtype):
+    """Rank 0's prior, kernel and noise on every rank of ``mesh``, bit for
+    bit (one broadcast of their parameters in ``dtype``): ranks that fit
+    alike on different devices may still round apart."""
+    from ..parallel.mesh import broadcast
+
+    kernel = kernel.to(dtype, mesh.device)
+    prior = prior.to(dtype, mesh.device)
+    fields = [f.name for f in dataclasses.fields(prior)]
+    parts = [kernel.get_params().reshape(-1),
+             torch.as_tensor(noise, dtype=dtype, device=mesh.device).reshape(-1),
+             *(getattr(prior, f).reshape(-1) for f in fields)]
+    flat = broadcast(mesh, torch.cat(parts).contiguous(), 0)
+    sizes = [p.numel() for p in parts]
+    out = list(torch.split(flat, sizes))
+    kernel = kernel.with_params(out[0])
+    noise = out[1].reshape(())
+    prior = prior.replace(**{f: v.reshape(getattr(prior, f).shape)
+                             for f, v in zip(fields, out[2:])})
+    return prior, kernel, noise

@@ -52,6 +52,8 @@ kernel does not take. Its plain PyTorch version is
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .build import METHODS, check_launch, library, program
@@ -63,6 +65,10 @@ LAUNCHES_BY_VARIANT = {"tf32x3": 0, "one_pass": 0, "bf16": 0, "f64": 0}
 #: Of those, the launches with the panel's rows as their own operand
 #: (``panel_rows``: a rank of the distributed factorization below the panel).
 LAUNCHES_TWO_OPERAND = {"tf32x3": 0, "one_pass": 0, "bf16": 0, "f64": 0}
+#: The same launches by shape (:func:`launch_shape`): ``(rows, block, depth,
+#: d, dtype name, operands) -> count``, where ``depth`` is the prefix's
+#: columns and ``operands`` 2 where the panel's rows came as ``panel_rows``.
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 #: Relative error of one float32 product a*b formed by the 3xTF32 split,
 #: on top of float32 accumulation: a_lo b_lo is dropped and the low parts
@@ -92,6 +98,15 @@ def variant(dtype: torch.dtype, prefix_dtype: torch.dtype, precision=None) -> st
         f"panel-strip kernel takes float32 or float64 inputs with a prefix of the same dtype, "
         f"or float32 inputs with a bfloat16 prefix; got {dtype} and {prefix_dtype}"
     )
+
+
+def launch_shape(rows: int, block: int, depth: int, d: int, dtype: torch.dtype,
+                 two_operands: bool) -> tuple:
+    """The key of :data:`LAUNCHES_BY_SHAPE` of a launch writing a (rows,
+    block) strip of ``d``-feature inputs of ``dtype`` against a prefix
+    ``depth`` deep."""
+    return (int(rows), int(block), int(depth), int(d), str(dtype).split(".")[-1],
+            2 if two_operands else 1)
 
 
 def _rows_operand(t: torch.Tensor, what: str) -> int:
@@ -211,6 +226,8 @@ def panel_strip(kernel, x_tail: torch.Tensor, xj: torch.Tensor,
     check_launch(err, "panel-strip kernel")
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[kind] += 1
+    LAUNCHES_BY_SHAPE[launch_shape(rest, block, kdim, x_tail.shape[1], dtype,
+                                   panel_rows is not None)] += 1
     if panel_rows is not None:
         LAUNCHES_TWO_OPERAND[kind] += 1
     return out

@@ -22,9 +22,17 @@ width ``B`` divide ``R``, so none straddles two ranks. For the panel
    applies to its rows by TRSM.
 
 The last rank's panels have no rank below them and broadcast nothing; a
-mesh of one sends no collective but the final flag. ``ok`` (finite factor
-on every rank) is one all-reduce MIN. Every collective goes through
-``parallel/mesh.py``'s helpers, which count them.
+mesh of one sends no collective but the final flag. Over a factorization
+the broadcasts carry, for each panel of a rank but the last,
+``B (j0 + B + d)`` elements (``j0`` padded to :data:`ROW_PAD`). ``ok``
+(finite factor on every rank) is one all-reduce MIN. Every collective goes
+through ``parallel/mesh.py``'s helpers, which count them.
+
+The work is not balanced. Panel ``j0`` downdates the rows below it, a
+prefix ``j0`` deep, so rank ``r`` of ``W`` computes about ((r + 1)^3 -
+r^3) / W^3 of a build's products: 1, 7, 19 and 37 sixty-fourths on four
+ranks. The last rank sets the build's length, and rank 0 is idle for every
+panel after its own.
 """
 
 from __future__ import annotations

@@ -46,8 +46,9 @@ from ..models.optimizer import AdamState, _adam_delta, _init_params
 from ..ops.covariance import cross_covariance, kernel_diag
 from ..ops.streamed_matvec import rademacher_probes
 from ..utils.errors import CholeskyError
+from ..utils.profiling import scope
 from .distributed_append import distributed_cholesky_append
-from .distributed_cholesky import distributed_cholesky_factor
+from .distributed_cholesky import distributed_cholesky_factor, local_block
 from .distributed_solve import (
     distributed_cho_solve,
     distributed_cross_covariance,
@@ -106,6 +107,8 @@ class LargeScaleGP:
         self.noise = torch.as_tensor(noise, dtype=dtype, device=device)
         self.l_local: Optional[torch.Tensor] = None
         self._cached_weights = None
+        #: ADAM iterations of the last ``fit_scaled`` / ``fit_generic``.
+        self.fit_iterations = 0
         self._factor()
 
     @classmethod
@@ -131,6 +134,7 @@ class LargeScaleGP:
         gp.noise = torch.as_tensor(noise, dtype=dtype, device=device)
         gp.l_local = l_local.to(device)
         gp._cached_weights = None
+        gp.fit_iterations = 0
         return gp
 
     # -- factorization ---------------------------------------------------------
@@ -153,11 +157,14 @@ class LargeScaleGP:
         l0 = self.l_local
         if l0 is not None and l0.shape != (rows, self.capacity):
             l0 = self.l_local = None  # a grown capacity: free the old block first
-        self.l_local, ok = distributed_cholesky_factor(
-            self.mesh, self.kernel if kernel is None else kernel, self.x_local,
-            self.n if n is None else n, self.noise if noise is None else noise, eps=self.eps,
-            block=self.block, method=self.method, storage=self.storage, l0=l0,
-        )
+        _, _, block = local_block(self.mesh, self.capacity, self.block)
+        with scope("large_scale/factor", cap=self.capacity, world=self.mesh.size, block=block):
+            self.l_local, ok = distributed_cholesky_factor(
+                self.mesh, self.kernel if kernel is None else kernel, self.x_local,
+                self.n if n is None else n, self.noise if noise is None else noise,
+                eps=self.eps, block=self.block, method=self.method, storage=self.storage,
+                l0=l0,
+            )
         self._cached_weights = None
         return ok
 
@@ -400,8 +407,10 @@ class LargeScaleGP:
         probes = torch.as_tensor(probes, dtype=self.x.dtype, device=self.mesh.device)
         adam = AdamState(params=params, m=torch.zeros_like(params), v=torch.zeros_like(params))
         t0 = time.monotonic()
+        self.fit_iterations = 0
         for i in range(1, max_iter + 1):
             adam, progress = self._step(adam, probes, i, scaled, convergence_fraction)
+            self.fit_iterations = i
             if not progress or time.monotonic() - t0 > max_time:
                 break
 

@@ -6,8 +6,11 @@ Counterpart of ``friedrich_tpu/parallel/mesh.py``. The JAX package lays the
 partitioner; PyTorch has none, so the port lays everything out by ROWS:
 rank ``r`` of a mesh of ``W`` ranks holds rows ``[r cap / W, (r + 1) cap /
 W)`` of the training inputs' padded buffer and of the Cholesky factor (a
-(cap / W, cap) block). Every left-looking panel touches all rows, so the
-row layout keeps the ranks balanced (``parallel/distributed_cholesky.py``).
+(cap / W, cap) block). The layout does not balance a left-looking build:
+the panel at column j0 downdates only the rows below j0, with a prefix j0
+deep, so rank ``r`` computes ((r + 1)^3 - r^3) / W^3 of a build's products
+(1, 7, 19 and 37 sixty-fourths on four ranks) and a rank is idle for every
+panel after its own (``parallel/distributed_cholesky.py``).
 
 A mesh is a :class:`Mesh`: this process's rank in the default
 ``torch.distributed`` process group, the group's size and the device this
@@ -16,7 +19,11 @@ rank computes on. The layer talks only through :func:`broadcast` and :func:`all_
 package's ``psum``/``pmin`` become): a gather is an all-reduce of a
 zero-filled buffer. Both count what they send in :data:`COLLECTIVES`, by
 kind, shape and dtype, so that tests can pin the communication contract
-(``tests/test_comm_volume.py``'s). A mesh of one rank sends nothing.
+(``tests/test_comm_volume.py``'s), and its bytes in
+:data:`COLLECTIVE_BYTES`, by kind; each runs inside the scope
+``mesh/broadcast`` or ``mesh/all_reduce`` (``utils/profiling.py``: a
+profiler range, and a span with its ``bytes`` while spans are recorded). A
+mesh of one rank sends nothing.
 """
 
 from __future__ import annotations
@@ -29,10 +36,13 @@ import torch
 import torch.distributed as dist
 
 from ..utils.errors import ConfigError
+from ..utils.profiling import scope
 
 #: Collectives sent by :func:`broadcast` and :func:`all_reduce` in this
 #: process: ``(kind, shape, dtype name) -> count``.
 COLLECTIVES: collections.Counter = collections.Counter()
+#: Bytes of the tensors those collectives sent: ``kind -> bytes``.
+COLLECTIVE_BYTES: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,14 +131,23 @@ def _check_contiguous(t: torch.Tensor) -> None:
         raise ValueError(f"collectives take contiguous tensors, got strides {t.stride()}")
 
 
+def _count(kind: str, t: torch.Tensor) -> int:
+    """Counts one collective of ``kind`` on ``t``; returns its bytes."""
+    nbytes = t.numel() * t.element_size()
+    COLLECTIVES[(kind, tuple(t.shape), str(t.dtype).split(".")[-1])] += 1
+    COLLECTIVE_BYTES[kind] += nbytes
+    return nbytes
+
+
 def broadcast(mesh: Mesh, t: torch.Tensor, src: int) -> torch.Tensor:
     """Rank ``src``'s ``t`` into ``t`` on every rank of the mesh, in place;
     returns ``t``. ``t`` must be contiguous and of the same shape on every
     rank."""
     _check_contiguous(t)
     if mesh.size > 1:
-        COLLECTIVES[("broadcast", tuple(t.shape), str(t.dtype).split(".")[-1])] += 1
-        dist.broadcast(t, src=src)
+        nbytes = _count("broadcast", t)
+        with scope("mesh/broadcast", bytes=nbytes):
+            dist.broadcast(t, src=src)
     return t
 
 
@@ -137,10 +156,11 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
     ``t`` on every rank, in place; returns ``t``."""
     _check_contiguous(t)
     if mesh.size > 1:
-        COLLECTIVES[("all_reduce", tuple(t.shape), str(t.dtype).split(".")[-1])] += 1
         reduce_op = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
                      "max": dist.ReduceOp.MAX}[op]
-        dist.all_reduce(t, op=reduce_op)
+        nbytes = _count("all_reduce", t)
+        with scope("mesh/all_reduce", bytes=nbytes):
+            dist.all_reduce(t, op=reduce_op)
     return t
 
 

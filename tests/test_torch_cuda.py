@@ -554,8 +554,11 @@ def test_panel_strip_two_operand_matches_plain_version(card, kind, rows, block, 
     args = (kern, x, xj, None, 1200, 0.3, j0, block)
     kw = dict(precision=precision, prefix=prefix, panel_rows=panel_rows, row0=1000)
     before = pc.LAUNCHES_TWO_OPERAND[kind]
+    shape = pc.launch_shape(rows, block, j0, 5, dtype, True)
+    before_shape = pc.LAUNCHES_BY_SHAPE[shape]
     got = panel_fused.panel_strip(*args, **kw)
     assert pc.LAUNCHES_TWO_OPERAND[kind] == before + 1
+    assert pc.LAUNCHES_BY_SHAPE[shape] == before_shape + 1
     want = panel_fused.plain_panel_strip(*args, **kw)
     p = panel_fused.downdate_operand(prefix, dtype, precision)
     r = panel_fused.downdate_operand(panel_rows[:, :j0], dtype, precision)
@@ -563,6 +566,20 @@ def test_panel_strip_two_operand_matches_plain_version(card, kind, rows, block, 
     atol = 1e-12 if kind == "f64" else 2e-5
     bound = (j0 * unit + split) * (p.abs() @ r.abs().mT) + atol + (0 if kind == "f64" else 2e-5) * want.abs()
     assert bool(((got - want).abs() <= bound).all())
+
+
+def test_launches_by_shape_count_a_streamed_build(card):
+    """A streamed build of capacity 1,024 in panels of 256 launches B2 once a
+    panel, with one operand: the rows from the panel down, a prefix j0
+    deep."""
+    rng = np.random.default_rng(18)
+    x = torch.as_tensor(rng.normal(size=(1024, 5)), dtype=torch.float32, device=card)
+    kern = KERNELS["SquaredExp"].to(torch.float32, card)
+    before = dict(pc.LAUNCHES_BY_SHAPE)
+    streamed_cholesky_factor(kern, x, 1000, 0.3, block=256)
+    got = {k: v - before.get(k, 0) for k, v in pc.LAUNCHES_BY_SHAPE.items() if v != before.get(k, 0)}
+    assert got == {pc.launch_shape(1024 - j0, 256, j0, 5, torch.float32, False): 1
+                   for j0 in range(0, 1024, 256)}
 
 
 def test_panel_strip_wrapper_refuses_what_the_kernel_does_not_take(card):

@@ -512,3 +512,91 @@ def example_distributed_gp(mesh, n, d, seed, dtype, probes):
 
     _, out = run(mesh, n=n, d=d, seed=seed, dtype=getattr(torch, dtype), probes=torch.as_tensor(probes))
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_sharded_builder.py: the builder's sharded backend
+# ---------------------------------------------------------------------------
+
+
+def _hyper(gp) -> dict:
+    return {"kernel": _np(gp.kernel.get_params()), "noise": float(gp.noise),
+            "prior": float(gp.prior.c)}
+
+
+def builder_subfit(mesh, x, y, xq, subsample):
+    """``train()`` with the sharded backend and a sub-fit, beside the
+    one-card builder's on the same data."""
+    from friedrich_tpu_torch import GaussianProcess
+
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+
+    def builder(backend):
+        return (GaussianProcess.builder(x, y, device="cpu").set_noise(1.0).set_backend(backend)
+                .set_fit_subsample(subsample).fit_kernel().fit_prior())
+
+    sharded = builder("sharded")
+    gp = sharded.train()
+    one = builder("dense").train()
+    mean, var = gp.predict_mean_variance(torch.as_tensor(xq))
+    return {"type": type(gp).__name__, "mesh": (gp.mesh.rank, gp.mesh.size),
+            "capacity": gp.capacity, "timings": sorted(sharded.timings), **_hyper(gp),
+            "one": _hyper(one), "mean": _np(mean), "var": _np(var)}
+
+
+def builder_full_fit(mesh, x, y, max_iter):
+    """``train()`` with the sharded backend and no sub-fit, beside the same
+    steps taken by hand: the prior and the heuristic kernel on the full
+    data, a ``LargeScaleGP`` and its ``fit_scaled``."""
+    from friedrich_tpu_torch import GaussianProcess
+    from friedrich_tpu_torch.kernels import Gaussian
+    from friedrich_tpu_torch.parallel import LargeScaleGP
+    from friedrich_tpu_torch.priors import ConstantPrior
+
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    builder = (GaussianProcess.builder(x, y, device="cpu").set_noise(1.0).set_backend("sharded")
+               .set_fit_subsample(None).set_fit_parameters(max_iter, 0.05).fit_kernel().fit_prior())
+    gp = builder.train()
+    by_hand = LargeScaleGP(mesh, Gaussian().heuristic_fit(x, y), ConstantPrior().fit(x, y), 1.0,
+                           x, y)
+    by_hand.fit_scaled(max_iter=max_iter, convergence_fraction=0.05)
+    return {"type": type(gp).__name__, "timings": dict(builder.timings), **_hyper(gp),
+            "by_hand": _hyper(by_hand), "iterations": by_hand.fit_iterations}
+
+
+def build_counts(mesh, x, y, block):
+    """One ``LargeScaleGP`` build: its broadcasts' bytes and counts, its
+    spans, and the shapes of its B2 calls as the kernel's wrapper counts a
+    launch (``panel_strip_cuda.launch_shape``; the CPU runs B2's plain
+    version, which launches nothing)."""
+    from friedrich_tpu_torch.kernels import Gaussian
+    from friedrich_tpu_torch.ops.cuda import panel_strip_cuda
+    from friedrich_tpu_torch.parallel import LargeScaleGP, distributed_cholesky as dc, mesh as m
+    from friedrich_tpu_torch.priors import ZeroPrior
+    from friedrich_tpu_torch.utils import profiling
+
+    original, calls = dc.panel_strip, []
+
+    def recorded(kernel, x_tail, xj, l_full, n, noise, j0, block, method="gram", precision=None,
+                 prefix=None, end=None, panel_rows=None, row0=None):
+        calls.append(panel_strip_cuda.launch_shape(x_tail.shape[0], block, prefix.shape[1],
+                                                   x_tail.shape[1], x_tail.dtype,
+                                                   panel_rows is not None))
+        return original(kernel, x_tail, xj, l_full, n, noise, j0, block, method, precision,
+                        prefix, end, panel_rows, row0)
+
+    counts, sent = dict(m.COLLECTIVES), dict(m.COLLECTIVE_BYTES)
+    dc.panel_strip = recorded
+    try:
+        with profiling.record_spans():
+            profiling.drain()
+            LargeScaleGP(mesh, Gaussian(ls=1.5, ampl=1.0), ZeroPrior(), 0.5, torch.as_tensor(x),
+                         torch.as_tensor(y), block=block)
+            spans = profiling.drain()
+    finally:
+        dc.panel_strip = original
+    delta = {kind: sum(v - counts.get(k, 0) for k, v in m.COLLECTIVES.items() if k[0] == kind)
+             for kind in ("broadcast", "all_reduce")}
+    return {"counts": delta,
+            "bytes": {k: v - sent.get(k, 0) for k, v in m.COLLECTIVE_BYTES.items()},
+            "spans": [(s.name, dict(s.attrs)) for s in spans], "launches": calls}
